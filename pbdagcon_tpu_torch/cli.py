@@ -1,0 +1,205 @@
+"""The port's `dagcon` CLI (`python -m pbdagcon_tpu_torch`), mirroring
+the reference flags and the JAX package's CLI.
+
+Reference flags: positional M5/'pre' input (or stdin), `-c` min coverage
+(8), `-m` min length (500), `-j` threads (4), `-t` trim (0), `-a`
+re-align. `--device` picks the DP's device (default cuda; "cpu" runs the
+kernel's plain PyTorch version). `--distributed` comes with the
+multi-device slice (ROADMAP A14).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import resource
+import sys
+import time
+
+from pbdagcon_tpu.io import FastaWriter, open_input
+from pbdagcon_tpu_torch.config import DagconConfig
+from pbdagcon_tpu_torch.pipeline import run_stream
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="pbdagcon-torch",
+        description=(
+            "DAG consensus with pbdagcon's capabilities on PyTorch + CUDA: "
+            "M5/'pre' alignments in, consensus FASTA out."
+        ),
+    )
+    p.add_argument(
+        "input", nargs="?", default="-",
+        help="M5/'pre' alignment file, target-sorted ('-' = stdin)",
+    )
+    p.add_argument(
+        "-c", "--min-coverage", type=int, default=8,
+        help="minimum coverage (node weight) to keep a consensus base",
+    )
+    p.add_argument(
+        "-m", "--min-length", type=int, default=500,
+        help="minimum consensus fragment length to emit",
+    )
+    p.add_argument(
+        "-t", "--trim", type=int, default=0,
+        help="trim N aligned query bases off both alignment ends",
+    )
+    p.add_argument(
+        "-a", "--align", action="store_true",
+        help="re-align raw (ungapped) seq pairs before consensus "
+        "(for 'pre' records carrying unaligned sequences)",
+    )
+    p.add_argument(
+        "-j", "--threads", type=int, default=4,
+        help="host worker threads (native graph build)",
+    )
+    p.add_argument(
+        "--fmt", choices=("m5", "pre"), default="m5", help="input format"
+    )
+    p.add_argument(
+        "--backend", choices=("auto", "cuda", "host"), default="auto",
+        help="consensus backend: cuda (batched DP kernel), host (native "
+        "engine only); auto = cuda",
+    )
+    p.add_argument(
+        "--device", default="cuda",
+        help="device of the DP (cuda, cuda:N, or cpu for the plain "
+        "PyTorch version)",
+    )
+    p.add_argument(
+        "--batch-targets", type=int, default=128,
+        help="targets per device batch",
+    )
+    p.add_argument(
+        "--chunk-mb", type=int, default=16,
+        help="streaming feed-chunk size (MB); DAGCON_CHUNK_MB overrides",
+    )
+    p.add_argument(
+        "--width", type=int, default=0,
+        help="FASTA line width (0 = unwrapped)",
+    )
+    p.add_argument(
+        "--shard", default=None, metavar="I/N",
+        help="process only target-groups i mod N == I (each process "
+        "writes its own output)",
+    )
+    p.add_argument(
+        "--shard-bytes", action="store_true",
+        help="with --shard and a file input: read only this shard's "
+        "byte range of the file (group-boundary exact)",
+    )
+    p.add_argument(
+        "--journal", default=None, metavar="PATH",
+        help="completed-target journal: skip targets already recorded, "
+        "append as they finish (restart-safe streaming)",
+    )
+    p.add_argument(
+        "--profile-dir", default=None, metavar="DIR",
+        help="write a torch.profiler chrome trace of the run to DIR",
+    )
+    p.add_argument(
+        "--selfcheck", action="store_true",
+        help="debug: per target, assert graph invariants and that the "
+        "linearized DP reproduces the graph-walk consensus; output "
+        "unchanged",
+    )
+    p.add_argument("-v", "--verbose", action="store_true")
+    return p
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(
+        level=logging.DEBUG if args.verbose else logging.INFO,
+        format="%(asctime)s %(name)s %(levelname)s %(message)s",
+        stream=sys.stderr,
+    )
+    cfg = DagconConfig(
+        min_weight=args.min_coverage,
+        min_length=args.min_length,
+        threads=args.threads,
+        trim=args.trim,
+        align=args.align,
+        fmt=args.fmt,
+        backend=args.backend,
+        device=args.device,
+        batch_targets=args.batch_targets,
+        chunk_mb=args.chunk_mb,
+    )
+    stream = open_input(args.input)
+
+    journal = None
+    if args.journal:
+        from pbdagcon_tpu_torch.parallel.journal import TargetJournal
+
+        journal = TargetJournal(args.journal, before_flush=sys.stdout.flush)
+
+    if args.shard or journal is not None:
+        from pbdagcon_tpu.io import filter_groups_text, shard_stream_bytes
+
+        shard_i, shard_n = 0, 1
+        if args.shard:
+            shard_i, shard_n = (int(x) for x in args.shard.split("/"))
+        if args.shard_bytes and args.shard and args.input != "-":
+            stream.close()
+            stream = shard_stream_bytes(args.input, cfg.fmt, shard_i, shard_n)
+            if journal is not None:
+                stream = filter_groups_text(
+                    stream, cfg.fmt, lambda sid, _g: sid not in journal
+                )
+        else:
+            if args.shard_bytes:
+                logging.getLogger("pbdagcon_tpu_torch").warning(
+                    "--shard-bytes needs --shard and a file input; "
+                    "falling back to filtered streaming"
+                )
+
+            def keep(sid: str, gidx: int) -> bool:
+                if gidx % shard_n != shard_i:
+                    return False
+                return journal is None or sid not in journal
+
+            stream = filter_groups_text(stream, cfg.fmt, keep)
+
+    if args.selfcheck:
+        from pbdagcon_tpu.selfcheck import run_selfcheck
+
+        rc = run_selfcheck(stream, cfg)
+        if journal is not None:
+            journal.close()
+        return rc
+
+    writer = FastaWriter(sys.stdout, width=args.width)
+    prof = None
+    if args.profile_dir:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.__enter__()
+    t0 = time.time()
+    try:
+        run_stream(stream, writer, cfg, journal=journal)
+        ru = resource.getrusage(resource.RUSAGE_SELF)
+        print(
+            f"proc_time={time.time() - t0:.3f}s "
+            f"cpu_time={ru.ru_utime + ru.ru_stime:.3f}s",
+            file=sys.stderr,
+        )
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            os.makedirs(args.profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
+        if journal is not None:
+            journal.close()
+    return 0
+
+
+if __name__ == "__main__":  # pragma: no cover
+    raise SystemExit(main())

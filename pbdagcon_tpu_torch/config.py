@@ -1,0 +1,96 @@
+"""Run configuration of the PyTorch/CUDA port, mirroring the reference
+`dagcon` CLI semantics.
+
+Same reference knobs and defaults as `pbdagcon_tpu.config.DagconConfig`
+(`-c` min coverage 8, `-m` min length 500, `-j` threads 4, `-t` trim 0).
+The execution knobs differ: the port's backends are "cuda" (the banded
+DP runs in the hand-written kernel, `ops/dp_cuda.py`) and "host" (the
+native engine runs everything); "auto" means "cuda". `device` picks where
+the "cuda" backend's DP runs: a CUDA device launches the kernel, and an
+explicit "cpu" runs the kernel's plain PyTorch version (tests).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+# Backends of the JAX package that the port does not run (yet), with
+# the ROADMAP item that ports each.
+_NOT_PORTED = {
+    "xla": "the TPU forms of the DP are one kernel here: use "
+    "backend='cuda' (ROADMAP B1)",
+    "blocked": "the TPU forms of the DP are one kernel here: use "
+    "backend='cuda' (ROADMAP B1; the blocked solve returns with "
+    "colshard, A14)",
+    "pallas": "the TPU forms of the DP are one kernel here: use "
+    "backend='cuda' (ROADMAP B1)",
+    "devbuild": "the all-on-device path is slice 2 (ROADMAP A7-A10)",
+    "hybrid": "the hybrid scheduler is slice 2 (ROADMAP A11)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class DagconConfig:
+    # Reference-equivalent knobs (dagcon -c / -m / -j / -t).
+    min_weight: int = 8
+    min_length: int = 500
+    threads: int = 4
+    trim: int = 0
+
+    # Input format: "m5" (blasr -m 5) or "pre" (HGAP m4topre records).
+    fmt: str = "m5"
+    # Re-align raw (ungapped) q/t pairs before graph building (dagcon -a).
+    align: bool = False
+    # Where -a alignment runs: only "host" (threaded C++ banded DP) is
+    # ported; "device" is ROADMAP A12.
+    align_backend: str = "host"
+    # -a scorer: "simple" (SPEC §1.5) or "affine" (SPEC §1.6).
+    align_scorer: str = "simple"
+    affine_params: tuple[int, int, int, int] = (1, -2, -4, -1)
+
+    # Bucket ladders for padded shapes (nodes V, band width W).
+    v_buckets: tuple[int, ...] = (256, 512, 1024, 2048, 4096, 8192, 16384)
+    w_buckets: tuple[int, ...] = (16, 32, 64, 128)
+    # Targets per device dispatch.
+    batch_targets: int = 128
+    # "cuda" (device DP kernel), "host" (all native) or "auto" (= cuda).
+    backend: str = "auto"
+    # Device of the "cuda" backend's DP: a CUDA device, or "cpu" for the
+    # kernel's plain PyTorch version.
+    device: str = "cuda"
+    # Use the native C++ loader/graph engine when available.
+    use_native: bool = True
+    # Feed-chunk size for the streaming loader, in MB (DAGCON_CHUNK_MB
+    # env overrides).
+    chunk_mb: int = 16
+
+    def __post_init__(self) -> None:
+        if self.fmt not in ("m5", "pre"):
+            raise ValueError(f"fmt must be 'm5' or 'pre', got {self.fmt!r}")
+        if self.align_backend == "device":
+            raise NotImplementedError(
+                "align_backend='device' is not ported yet (ROADMAP A12); "
+                "use align_backend='host'"
+            )
+        if self.align_backend != "host":
+            raise ValueError(f"unknown align_backend {self.align_backend!r}")
+        if self.align_scorer not in ("simple", "affine"):
+            raise ValueError(f"unknown align_scorer {self.align_scorer!r}")
+        if self.align_scorer == "affine":
+            m, x, o, e = self.affine_params
+            if not (m >= 0 and x <= 0 and o <= e <= 0):
+                raise ValueError(
+                    "affine_params must satisfy match>=0, mismatch<=0, "
+                    f"open<=extend<=0; got {self.affine_params}"
+                )
+        if self.backend in _NOT_PORTED:
+            raise NotImplementedError(
+                f"backend {self.backend!r} is not ported: "
+                f"{_NOT_PORTED[self.backend]}"
+            )
+        if self.backend not in ("auto", "cuda", "host"):
+            raise ValueError(f"unknown backend {self.backend!r}")
+        if self.min_weight < 0 or self.min_length < 0 or self.trim < 0:
+            raise ValueError("min_weight/min_length/trim must be >= 0")
+        if self.batch_targets < 1 or self.chunk_mb < 1:
+            raise ValueError("batch_targets and chunk_mb must be >= 1")

@@ -1,0 +1,91 @@
+"""The port's side of the native C++ engine.
+
+The engine itself (`native/libdagcon.so`) and its ctypes bindings are
+shared with the JAX package by import (`pbdagcon_tpu.native`), except
+the batch packer: `NativeEngine.pack_batch` imports the JAX package's
+`ops.dp`, which imports jax. `pack_batch` here calls the same C entry
+point, `dagcon_pack_batch`, into one arena laid out by the port's
+`ops.dp.arena_layout`, optionally in pinned host memory so that a single
+non-blocking copy uploads the whole batch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from pbdagcon_tpu.native import (  # noqa: F401
+    NativeEngine,
+    available,
+    ensure_built,
+)
+from pbdagcon_tpu_torch.ops.dp import LongEdgeOverflow, arena_layout
+
+
+def pack_batch(
+    eng: NativeEngine,
+    idxs: list[int],
+    V: int,
+    W: int,
+    K: int,
+    b_pad: int | None = None,
+    pin_memory: bool = False,
+) -> dict:
+    """Threaded C++ packing of retained targets `idxs` into one arena
+    (the contract of `NativeEngine.pack_batch`). Returns numpy views of
+    the seven DP arrays, the arena as a uint8 tensor (`_arena`) and its
+    `_dims` (B, V, W, K). Rows past len(idxs) up to `b_pad` stay empty.
+    Raises `LongEdgeOverflow` on any target that does not fit."""
+    B = len(idxs)
+    Bp = max(b_pad or B, B)
+    ia = np.asarray(idxs, dtype=np.int32)
+    off = arena_layout(Bp, V, W, K)
+    arena_t = torch.empty(off["_total"], dtype=torch.uint8, pin_memory=pin_memory)
+    arena = arena_t.numpy()
+    arena[off["win_count"][1] :] = 0  # the band is filled with -1 below
+
+    def view(name, dtype, shape):
+        a, b = off[name]
+        return arena[a:b].view(dtype).reshape(shape)
+
+    win = view("win_count", np.int16, (Bp, V, W))
+    win[:] = -1
+    exit_c = view("exit_count", np.int16, (Bp, V))
+    exit_c[:] = -1
+    cov = view("cov", np.int16, (Bp, V))
+    unsup = view("unsup", np.uint8, (Bp, V))
+    long_u = view("long_u", np.int32, (Bp, K))
+    long_u[:] = -1
+    long_w = view("long_w", np.int32, (Bp, K))
+    long_w[:] = -1
+    long_esc = view("long_esc", np.float32, (Bp, K))
+    long_esc[:] = -np.inf
+
+    def p(a, typ):
+        return a.ctypes.data_as(ctypes.POINTER(typ))
+
+    rc = eng._lib.dagcon_pack_batch(
+        eng._h, p(ia, ctypes.c_int32), B, V, W, K,
+        p(win, ctypes.c_int16), p(exit_c, ctypes.c_int16),
+        p(cov, ctypes.c_int16), p(unsup, ctypes.c_uint8),
+        p(long_u, ctypes.c_int32), p(long_w, ctypes.c_int32),
+        p(long_esc, ctypes.c_float),
+    )
+    if rc != 0:
+        raise LongEdgeOverflow(
+            f"target index {idxs[rc - 1]} does not fit (V={V}, W={W}, "
+            f"K={K})"
+        )
+    return {
+        "win_count": win,
+        "exit_count": exit_c,
+        "cov": cov,
+        "unsup": unsup.view(bool),
+        "long_u": long_u,
+        "long_w": long_w,
+        "long_esc": long_esc,
+        "_arena": arena_t,
+        "_dims": (Bp, V, W, K),
+    }

@@ -1,0 +1,107 @@
+"""Build and load the port's CUDA kernels.
+
+`nvcc` compiles `csrc/<name>.cu` at first use into a shared library with
+a plain C interface, in `pbdagcon_tpu_torch/_build/` (listed in
+.gitignore), and `ctypes` loads it. Nothing is built at import time. The
+library's file name carries a hash of the source and the flags, so an
+edited source is rebuilt and a stale library is never loaded. A failed
+build raises with nvcc's stderr.
+
+Flags: `sm_90a` (Hopper), and `--fmad=false` so that no
+multiply and add are contracted into an FMA (the DP's exactness rests on
+round-to-nearest float32 steps, like the native engine's "never
+-ffast-math" rule).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+# nvcc's stderr of each build made by this process (ptxas prints the
+# kernels' registers, shared memory and spills there).
+build_logs: dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in (
+        os.path.join(home, "bin", "nvcc") if home else None,
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME); the CUDA kernels are built from "
+        "source at first use"
+    )
+
+
+def build(name: str) -> str:
+    """Compile `csrc/<name>.cu` if its library is missing; return the
+    library's path."""
+    src = os.path.join(SRC_DIR, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha1(
+            f.read() + " ".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:16]
+    path = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_logs[name] = res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed to build {src} (exit {res.returncode}):\n"
+            f"{' '.join(cmd)}\n{res.stderr}{res.stdout}"
+        )
+    os.replace(tmp, path)
+    return path
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load `csrc/<name>.cu`; cached per process."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(build(name))
+            _bind(name, lib)
+            _libs[name] = lib
+        return lib
+
+
+def _bind(name: str, lib: ctypes.CDLL) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    if name == "dp_scan":
+        lib.dagcon_dp_scan.restype = ci
+        lib.dagcon_dp_scan.argtypes = [vp] * 8 + [ci] * 4 + [vp]
+    lib.dagcon_cuda_error_string.restype = ctypes.c_char_p
+    lib.dagcon_cuda_error_string.argtypes = [ci]
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if rc != 0:
+        msg = lib.dagcon_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")

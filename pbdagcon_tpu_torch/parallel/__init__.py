@@ -1,0 +1,5 @@
+"""Multi-device execution of the port. This slice carries the
+completed-target journal only; the mesh, the sharded DP and the
+scheduler come with the multi-device slice (ROADMAP A14)."""
+
+from pbdagcon_tpu_torch.parallel.journal import TargetJournal  # noqa: F401
