@@ -5,19 +5,32 @@ CUDA card: `python3 chip_smoke.py` from the root of a checkout.
 Phases, in order; any failure exits non-zero before the last line:
 
 1. Require CUDA, print the card's name and power limit, build the native
-   engine (`make -C native`).
-2. Build the DP kernel (`csrc/dp_scan.cu`, nvcc, sm_90a) and hold it
-   against its plain PyTorch version on the card, bitwise (0 ulp): random
-   arena batches over W in {16,32,64,128} x K in {8,32,128} (B not a
-   multiple of 32, long edges, unsup nodes, -1 gaps), then one real batch of the
-   bench workload from the native packer, where both are timed with
-   CUDA events.
-3. The main path at full size: the bench workload (512 targets x 1000 bp
-   x 30x, seed 1234, raw 'pre' records, -a host aligner) through
-   `pipeline.run_stream` with backend "cuda". The FASTA must be
-   byte-equal to the single-thread native engine's, and the kernel's
+   engine (`make -C native`) and the kernels (`csrc/dp_scan.cu`,
+   `csrc/hist_scatter.cu`: one nvcc each, started together, sm_90a).
+2. Hold the DP kernel against its plain PyTorch version on the card,
+   bitwise (0 ulp): random arena batches over W in {16,32,64,128} x K in
+   {8,32,128} (B not a multiple of 32, long edges, unsup nodes, -1 gaps),
+   then one real batch of the bench workload from the native packer,
+   where both are timed with CUDA events.
+3. The native-loader path at full size: the bench workload (512 targets
+   x 1000 bp x 30x, seed 1234, raw 'pre' records, -a host aligner)
+   through `pipeline.run_stream` with backend "cuda". The FASTA must be
+   byte-equal to the single-thread native engine's, and the DP kernel's
    launch count over the run must be > 0.
-4. A JSON line of kernels, then the last line:
+4. Hold the histogram and scatter kernels against their plain versions
+   on the card, integer-equal: random cases (B not a multiple of 8, -1
+   and out-of-range values and ranks, negative and over-wide payloads,
+   1/2/4-byte cuts, repeated ranks, domains on both sides of the
+   shared-memory limit), then every hist and scatter call of one bench
+   window's device build, captured from the build and timed (kernel and
+   plain) with CUDA events.
+5. The devbuild path at full size: the bench workload through
+   `pipeline.run_stream` with backend "devbuild" (batch_targets=128),
+   warm-up then 3 runs; every FASTA byte-equal to the single-thread
+   native engine's, and the launches of hist, scatter and dp_scan over
+   the runs each > 0. Prints the host fallbacks by reason, the stages'
+   host-clock seconds, b/s, and a traced run's device busy time.
+6. A JSON line of kernels, then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 """
 
@@ -29,10 +42,13 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 SEED = 1234
 TARGETS, LENGTH, COVERAGE = 512, 1000, 30
 GRID_B, GRID_V = 37, 700
+DEVBUILD_BATCH = 128  # bench.py's batch_targets for the devbuild path
+KERNEL_SOURCES = ("dp_scan", "hist_scatter")
 
 
 def log(*a) -> None:
@@ -82,6 +98,32 @@ def time_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def trace_report(label, prof, wall, card, top, batches=None) -> None:
+    """Device busy time (the union of kernel and copy spans on the card)
+    of a torch.profiler run against its wall time, and the top spans."""
+    from torch.autograd import DeviceType
+
+    spans = sorted(
+        (e.time_range.start, e.time_range.end, e.name)
+        for e in prof.events()
+        if e.device_type == DeviceType.CUDA
+    )
+    if not spans:
+        log(f"{label}: the profiler recorded no device spans; device busy "
+            "time not measured")
+        return
+    busy_us, end, by_name = 0.0, float("-inf"), {}
+    for a, b, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    per = f"; {len(spans)} device spans over {batches} batches" if batches else ""
+    log(f"{label}: wall {wall:.4f} s, device busy {busy_us / 1e3:.3f} ms, "
+        f"idle share {1 - busy_us / 1e6 / wall:.4f}{per} [{card}]")
+    for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:top]:
+        log(f"  device {us / 1e3:.3f} ms  {name[:90]}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -115,13 +157,18 @@ def main() -> int:
         raise SystemExit("chip_smoke: the native engine failed to build")
     log(f"native engine ready in {time.time() - t:.1f}s")
 
-    # ---- phase 2: kernel vs plain version, bitwise ----
     t = time.time()
-    _build.load("dp_scan")
-    log(f"dp_scan built in {time.time() - t:.1f}s")
-    for line in _build.build_logs.get("dp_scan", "").splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
+        list(ex.map(_build.build, KERNEL_SOURCES))
+    for name in KERNEL_SOURCES:
+        _build.load(name)
+    log(f"kernels {', '.join(KERNEL_SOURCES)} built in {time.time() - t:.1f}s")
+    for name in KERNEL_SOURCES:
+        for line in _build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+    # ---- phase 2: DP kernel vs plain version, bitwise ----
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     worst = 0.0
@@ -201,7 +248,7 @@ def main() -> int:
         f"{kernel_b} ms, plain PyTorch {plain_a} / {plain_b} ms [{card}]")
     del args, got, want, batch
 
-    # ---- phase 3: the main path at full size ----
+    # ---- phase 3: the native-loader path at full size ----
     def run_port():
         out = io.StringIO()
         t0 = time.time()
@@ -246,7 +293,6 @@ def main() -> int:
 
     # One more run under torch.profiler: device busy time (the union of
     # kernel and copy spans on the card) against the run's wall time.
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(
@@ -255,37 +301,207 @@ def main() -> int:
         traced_dt, _, traced_fa = run_port()
     if traced_fa != fasta_host:
         raise SystemExit("chip_smoke: traced run FASTA != single-core C++")
-    spans = sorted(
-        (e.time_range.start, e.time_range.end, e.name)
-        for e in prof.events()
-        if e.device_type == DeviceType.CUDA
-    )
-    busy_us, end, by_name = 0.0, float("-inf"), {}
-    for a, b, name in spans:
-        by_name[name] = by_name.get(name, 0.0) + (b - a)
-        busy_us += max(0.0, b - max(a, end))
-        end = max(end, b)
-    if spans:
-        log(f"traced run: wall {traced_dt:.4f} s, device busy "
-            f"{busy_us / 1e3:.3f} ms, idle share "
-            f"{1 - busy_us / 1e6 / traced_dt:.4f} [{card}]")
-        for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:6]:
-            log(f"  device {us / 1e3:.3f} ms  {name[:90]}")
-    else:
-        log("traced run: the profiler recorded no device spans; device "
-            "busy time not measured")
+    trace_report("traced run", prof, traced_dt, card, top=6)
 
-    # ---- phase 4: results ----
+    cuda_path_launches = launches
+
+    # ---- phase 4: hist and scatter kernels vs plain versions ----
+    from pbdagcon_tpu_torch import devpipe
+    from pbdagcon_tpu_torch.ops import mxu, mxu_cuda
+
+    def int_err(a, b) -> int:
+        return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+    worst_k = {"hist": 0, "scatter": 0}
+    rng = np.random.default_rng(SEED + 2)
+    for B, N, D in ((3, 700, 257), (37, 41000, 15000), (5, 5000, 60000),
+                    (129, 100, 8), (7, 20000, 245000)):
+        v = torch.from_numpy(
+            rng.integers(-3, D + 5, (B, N)).astype(np.int32)).to(dev)
+        got, want = mxu_cuda.hist_cuda(v, D), mxu.hist_reference(v, D)
+        ok = torch.equal(got, want)
+        worst_k["hist"] = max(worst_k["hist"], int_err(got, want))
+        log(f"hist B={B} N={N} D={D}: {'equal' if ok else 'MISMATCH'}")
+        if not ok:
+            raise SystemExit("chip_smoke: hist kernel != plain version")
+    for B, N, D, nb, rep in ((3, 700, 800, 1, False), (37, 5000, 5000, 2, False),
+                             (5, 40000, 4000, 4, True), (11, 3000, 300, 3, True)):
+        r = (rng.integers(-3, D + 5, (B, N)) if rep else
+             np.stack([rng.permutation(N) for _ in range(B)]) - 2)
+        r = torch.from_numpy(r.astype(np.int32)).to(dev)
+        ps = tuple(torch.from_numpy(rng.integers(
+            -(1 << 31), (1 << 31) - 1, (B, N)).astype(np.int32)).to(dev)
+            for _ in range(2))
+        mask = (1 << (8 * nb)) - 1
+        pairs = list(zip(mxu_cuda.scatter_cuda(r, ps, D, mask),
+                         mxu.scatter_reference(r, ps, D, mask)))
+        ok = all(torch.equal(a, b) for a, b in pairs)
+        worst_k["scatter"] = max([worst_k["scatter"]]
+                                 + [int_err(a, b) for a, b in pairs])
+        log(f"scatter B={B} N={N} D={D} nbytes={nb} repeated={rep}: "
+            f"{'equal' if ok else 'MISMATCH'}")
+        if not ok:
+            raise SystemExit("chip_smoke: scatter kernel != plain version")
+
+    # Every hist/scatter call of one bench window's build, captured.
+    calls = {"hist": [], "scatter": []}
+    real_hist, real_scatter = mxu_cuda.hist_cuda, mxu_cuda.scatter_cuda
+
+    def rec_hist(values, D):
+        calls["hist"].append((values.clone(), D))
+        return real_hist(values, D)
+
+    def rec_scatter(ranks, payloads, D, cut_mask):
+        calls["scatter"].append(
+            (ranks.clone(), tuple(p.clone() for p in payloads), D, cut_mask))
+        return real_scatter(ranks, payloads, D, cut_mask)
+
+    with native.NativeEngine(
+        min_weight=min_weight, min_length=100, threads=threads, align=True
+    ) as eng:
+        cnt = eng.encode_text(text, fmt="pre")
+        metas = eng.enc_metas(DEVBUILD_BATCH)
+        R, C, L = (int(metas[:, k].max()) for k in range(3))
+        bkey = (devpipe._ladder(R, devpipe._R_LADDER),
+                devpipe._ladder(C, devpipe._C_LADDER),
+                devpipe._ladder(L, devpipe._L_LADDER))
+        prof = devpipe._profile(int(metas[:, 3].sum()), int(metas[:, 4].sum()))
+        caps = devpipe.choose_window_caps(
+            bkey + (prof.W,), metas, prof, {}, {}, {})
+        idxs = [i for i in range(DEVBUILD_BATCH)
+                if int(metas[i, 3]) <= devpipe.ins_cap(caps)]
+        host = native.enc_fill_packed(
+            eng, idxs, caps.R, caps.C, caps.L, devpipe.ins_cap(caps),
+            B=caps.B, pin_memory=True)
+    inputs = tuple(x.to(dev) for x in host)
+    P = min(caps.V, 2 * caps.L + 64)
+    mxu_cuda.hist_cuda, mxu_cuda.scatter_cuda = rec_hist, rec_scatter
+    try:
+        devpipe.run_batch(inputs, caps, P, min_weight, packed=True)
+    finally:
+        mxu_cuda.hist_cuda, mxu_cuda.scatter_cuda = real_hist, real_scatter
+    torch.cuda.synchronize()
+    log(f"bench window caps: {caps} ({cnt} targets encoded, window of "
+        f"{len(idxs)})")
+
+    def run_hist(plain):
+        for values, D in calls["hist"]:
+            (mxu.hist_reference if plain else real_hist)(values, D)
+
+    def run_scatter(plain):
+        for ranks, payloads, D, mask in calls["scatter"]:
+            (mxu.scatter_reference if plain else real_scatter)(
+                ranks, payloads, D, mask)
+
+    timed = {}
+    for name, run in (("hist", run_hist), ("scatter", run_scatter)):
+        for c in calls[name]:
+            if name == "hist":
+                pairs = [(real_hist(*c), mxu.hist_reference(*c))]
+            else:
+                pairs = list(zip(real_scatter(*c), mxu.scatter_reference(*c)))
+            ok = all(torch.equal(a, b) for a, b in pairs)
+            worst_k[name] = max([worst_k[name]] + [int_err(a, b) for a, b in pairs])
+            if not ok:
+                raise SystemExit(f"chip_smoke: {name} kernel != plain "
+                                 f"version on a bench window call")
+        # In turns (plain, kernel, kernel, plain); ms for all the
+        # window's calls of the kernel.
+        pa = time_ms(lambda: run(True), 5)
+        ka = time_ms(lambda: run(False), 20)
+        kb = time_ms(lambda: run(False), 20)
+        pb = time_ms(lambda: run(True), 5)
+        timed[name] = ((ka + kb) / 2, (pa + pb) / 2)
+        shapes = sorted({tuple(c[0].shape) + (c[-1] if name == "hist" else c[2],)
+                         for c in calls[name]})
+        log(f"{name}: {len(calls[name])} calls per bench window (B, N, D in "
+            f"{shapes}), all equal to the plain version; kernel {ka} / {kb} "
+            f"ms, plain PyTorch {pa} / {pb} ms per window [{card}]")
+    del calls, inputs, host
+
+    # ---- phase 5: the devbuild path at full size ----
+    dcfg = DagconConfig(
+        min_weight=min_weight, min_length=100, threads=threads,
+        backend="devbuild", device="cuda", batch_targets=DEVBUILD_BATCH,
+        fmt="pre", align=True,
+    )
+
+    def run_dev():
+        out = io.StringIO()
+        t0 = time.time()
+        stats = run_stream(
+            io.TextIOWrapper(io.BytesIO(text)), FastaWriter(out), dcfg
+        )
+        torch.cuda.synchronize()
+        return time.time() - t0, stats, out.getvalue()
+
+    run_dev()  # warm-up
+    dp_cuda.launches = 0
+    mxu_cuda.launches.update(hist=0, scatter=0)
+    druns = [run_dev() for _ in range(3)]
+    dev_launches = {"dp_scan": dp_cuda.launches, **mxu_cuda.launches}
+    if any(r[2] != fasta_host for r in druns):
+        raise SystemExit("chip_smoke: devbuild FASTA != single-core C++ FASTA")
+    ddts = sorted(r[0] for r in druns)
+    _, dstats, _ = druns[-1]
+    if dstats.targets != TARGETS or any(v == 0 for v in dev_launches.values()):
+        raise SystemExit(f"chip_smoke: devbuild path did not run its kernels "
+                         f"({dev_launches}, {dstats})")
+    emitted = dstats.targets - dstats.host_fallbacks
+    log(f"devbuild path: targets={dstats.targets} batches={dstats.batches} "
+        f"launches over 3 runs {dev_launches}; FASTA byte-equal to the "
+        f"single-thread native engine in every run [{card}]")
+    log(f"devbuild host fallbacks by reason: {dstats.fallback_reasons} "
+        f"({dstats.host_fallbacks} of {dstats.targets}; the device emitted "
+        f"{emitted / dstats.targets:.4f} of the targets)")
+    stages = ", ".join(f"{k} {v:.4f}" for k, v in dstats.stage_s.items())
+    log(f"devbuild host-clock seconds by stage (last run, wall "
+        f"{druns[-1][0]:.4f}): {stages} [{card}]")
+    log(f"devbuild end-to-end: {bases / ddts[1]:.1f} b/s median of 3 "
+        f"(min {bases / ddts[-1]:.1f}, max {bases / ddts[0]:.1f}; "
+        f"{threads} host threads) [{card}]")
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    ) as prof:
+        traced_dt, tstats, traced_fa = run_dev()
+    if traced_fa != fasta_host:
+        raise SystemExit("chip_smoke: traced devbuild FASTA != single-core C++")
+    trace_report("devbuild traced run", prof, traced_dt, card, top=10,
+                 batches=tstats.batches)
+
+    # ---- phase 6: results ----
     log(card)
+    hist_ms, hist_plain = timed["hist"]
+    sc_ms, sc_plain = timed["scatter"]
     print(json.dumps({"kernels": [{
         "name": "dp_scan",
         "route": "cuda",
         "source": "pbdagcon_tpu_torch/csrc/dp_scan.cu",
         "replaces": "pbdagcon_tpu/ops/dp_pallas.py:40",
-        "launches": launches,
+        "launches": cuda_path_launches + dev_launches["dp_scan"],
+        "launches_by_path": {"cuda": cuda_path_launches,
+                             "devbuild": dev_launches["dp_scan"]},
         "max_abs_err": worst,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "hist",
+        "route": "cuda",
+        "source": "pbdagcon_tpu_torch/csrc/hist_scatter.cu",
+        "replaces": "pbdagcon_tpu/ops/mxu.py:60",
+        "launches": dev_launches["hist"],
+        "max_abs_err": worst_k["hist"],
+        "ms": hist_ms,
+        "plain_ms": hist_plain,
+    }, {
+        "name": "scatter",
+        "route": "cuda",
+        "source": "pbdagcon_tpu_torch/csrc/hist_scatter.cu",
+        "replaces": "pbdagcon_tpu/ops/mxu.py:305",
+        "launches": dev_launches["scatter"],
+        "max_abs_err": worst_k["scatter"],
+        "ms": sc_ms,
+        "plain_ms": sc_plain,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

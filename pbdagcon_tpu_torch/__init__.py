@@ -6,16 +6,28 @@ of the JAX package are shared by import, not copied: the alignment
 records and parsers, the IO, the graph oracle, the host linearizer, the
 `-a` aligner, the simulator and the native C++ engine's bindings.
 
-Layer map (this slice: the native-loader consensus path):
+Layer map (slices: the native-loader consensus path, the devbuild path):
 
-- `config`    : `DagconConfig` (backends "cuda", "host", "auto").
+- `config`    : `DagconConfig` (backends "cuda", "devbuild", "host",
+                "auto").
 - `pipeline`  : stream -> native linearize -> batched DP -> native
-                backtrack + FASTA (`run_stream`).
-- `native`    : the batch packer over the native engine's C ABI.
+                backtrack + FASTA (`run_stream`), and the devbuild
+                dispatch.
+- `devpipe`   : stream -> native encode -> device build + DP + device
+                backtrack -> host fragment assembly + FASTA.
+- `native`    : the batch packer and the encoded-input fill over the
+                native engine's C ABI, into pinned memory.
 - `ops.dp`    : the DP's dispatcher, its plain PyTorch version and the
                 batch layout helpers.
 - `ops.dp_cuda` + `csrc/dp_scan.cu`: the hand-written Hopper DP kernel.
-- `convert`   : config and packed batches from the JAX package.
+- `ops.devbuild_torch`, `ops.devemit`: the device graph build and
+                backtrack.
+- `ops.mxu`   : histogram/scatter dispatchers with their plain versions,
+                and the clamped gathers.
+- `ops.mxu_cuda` + `csrc/hist_scatter.cu`: the hand-written Hopper
+                histogram and scatter kernels.
+- `convert`   : config, packed batches and device-build arrays from the
+                JAX package.
 - `parallel`  : the completed-target journal.
 - `cli`       : `python -m pbdagcon_tpu_torch`.
 """

@@ -3,8 +3,9 @@ the reference flags and the JAX package's CLI.
 
 Reference flags: positional M5/'pre' input (or stdin), `-c` min coverage
 (8), `-m` min length (500), `-j` threads (4), `-t` trim (0), `-a`
-re-align. `--device` picks the DP's device (default cuda; "cpu" runs the
-kernel's plain PyTorch version). `--distributed` comes with the
+re-align. `--backend devbuild` runs the graph build, the DP and the
+backtrack on the device. `--device` picks the device (default cuda;
+"cpu" runs the kernels' plain PyTorch versions). `--distributed` comes with the
 multi-device slice (ROADMAP A14).
 """
 
@@ -59,14 +60,16 @@ def build_parser() -> argparse.ArgumentParser:
         "--fmt", choices=("m5", "pre"), default="m5", help="input format"
     )
     p.add_argument(
-        "--backend", choices=("auto", "cuda", "host"), default="auto",
-        help="consensus backend: cuda (batched DP kernel), host (native "
+        "--backend", choices=("auto", "cuda", "devbuild", "host"),
+        default="auto",
+        help="consensus backend: cuda (batched DP kernel), devbuild "
+        "(graph build, DP and backtrack on the device), host (native "
         "engine only); auto = cuda",
     )
     p.add_argument(
         "--device", default="cuda",
-        help="device of the DP (cuda, cuda:N, or cpu for the plain "
-        "PyTorch version)",
+        help="device of the DP and the device build (cuda, cuda:N, or cpu "
+        "for the kernels' plain PyTorch versions)",
     )
     p.add_argument(
         "--batch-targets", type=int, default=128,

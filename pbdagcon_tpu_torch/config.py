@@ -4,10 +4,11 @@
 Same reference knobs and defaults as `pbdagcon_tpu.config.DagconConfig`
 (`-c` min coverage 8, `-m` min length 500, `-j` threads 4, `-t` trim 0).
 The execution knobs differ: the port's backends are "cuda" (the banded
-DP runs in the hand-written kernel, `ops/dp_cuda.py`) and "host" (the
+DP runs in the hand-written kernel, `ops/dp_cuda.py`), "devbuild" (graph
+build, DP and backtrack on the device, `devpipe.py`) and "host" (the
 native engine runs everything); "auto" means "cuda". `device` picks where
-the "cuda" backend's DP runs: a CUDA device launches the kernel, and an
-explicit "cpu" runs the kernel's plain PyTorch version (tests).
+the device work runs: a CUDA device launches the kernels, and an
+explicit "cpu" runs their plain PyTorch versions (tests).
 """
 
 from __future__ import annotations
@@ -24,8 +25,7 @@ _NOT_PORTED = {
     "colshard, A14)",
     "pallas": "the TPU forms of the DP are one kernel here: use "
     "backend='cuda' (ROADMAP B1)",
-    "devbuild": "the all-on-device path is slice 2 (ROADMAP A7-A10)",
-    "hybrid": "the hybrid scheduler is slice 2 (ROADMAP A11)",
+    "hybrid": "the hybrid scheduler is not ported yet (ROADMAP A11)",
 }
 
 
@@ -53,10 +53,11 @@ class DagconConfig:
     w_buckets: tuple[int, ...] = (16, 32, 64, 128)
     # Targets per device dispatch.
     batch_targets: int = 128
-    # "cuda" (device DP kernel), "host" (all native) or "auto" (= cuda).
+    # "cuda" (device DP kernel), "devbuild" (all on the device), "host"
+    # (all native) or "auto" (= cuda).
     backend: str = "auto"
-    # Device of the "cuda" backend's DP: a CUDA device, or "cpu" for the
-    # kernel's plain PyTorch version.
+    # Device of the "cuda" and "devbuild" backends: a CUDA device, or
+    # "cpu" for the kernels' plain PyTorch versions.
     device: str = "cuda"
     # Use the native C++ loader/graph engine when available.
     use_native: bool = True
@@ -88,7 +89,7 @@ class DagconConfig:
                 f"backend {self.backend!r} is not ported: "
                 f"{_NOT_PORTED[self.backend]}"
             )
-        if self.backend not in ("auto", "cuda", "host"):
+        if self.backend not in ("auto", "cuda", "devbuild", "host"):
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.min_weight < 0 or self.min_length < 0 or self.trim < 0:
             raise ValueError("min_weight/min_length/trim must be >= 0")

@@ -1,7 +1,8 @@
 """State that crosses from the JAX package to the port.
 
-This system has no weights. What crosses is the run configuration and
-the packed DP batch, so that both packages can be fed identical inputs.
+This system has no weights. What crosses is the run configuration, the
+packed DP batch and the device build's arrays, so that both packages can
+be fed identical inputs.
 """
 
 from __future__ import annotations
@@ -31,6 +32,18 @@ def config_from_jax(cfg, device: str = "cuda") -> DagconConfig:
         device=device,
         **shared,
     )
+
+
+def tree_to_torch(tree, device):
+    """A nested dict of numpy arrays (the JAX `device_build` output
+    after `np.asarray` on each leaf, or its stage outputs) as the same
+    dict of tensors on `device`, dtypes kept, so that the port's DP and
+    emit stages can be fed the JAX build's exact arrays."""
+    if isinstance(tree, dict):
+        return {k: tree_to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_to_torch(v, device) for v in tree)
+    return torch.from_numpy(np.array(tree, copy=True, order="C")).to(device)
 
 
 def batch_to_torch(

@@ -6,7 +6,8 @@ the batch packer: `NativeEngine.pack_batch` imports the JAX package's
 `ops.dp`, which imports jax. `pack_batch` here calls the same C entry
 point, `dagcon_pack_batch`, into one arena laid out by the port's
 `ops.dp.arena_layout`, optionally in pinned host memory so that a single
-non-blocking copy uploads the whole batch.
+non-blocking copy uploads the whole batch. `enc_fill_packed` does the
+same for the device build's encoded inputs (`dagcon_enc_fill_packed`).
 """
 
 from __future__ import annotations
@@ -89,3 +90,45 @@ def pack_batch(
         "_arena": arena_t,
         "_dims": (Bp, V, W, K),
     }
+
+
+def enc_fill_packed(
+    eng: NativeEngine,
+    idxs: list[int],
+    R: int,
+    C: int,
+    L: int,
+    NI: int,
+    B: int | None = None,
+    pin_memory: bool = False,
+) -> tuple[torch.Tensor, ...]:
+    """`NativeEngine.enc_fill_packed` into (optionally pinned) tensors,
+    so that each uploads with one non-blocking copy: the device build's
+    inputs (ops 2-bit packed [B, R, C//4] uint8, starts [B, R] int32, bb
+    [B, L] uint8, ins [B, NI] uint8, Lr [B] int32) of the encoded
+    targets `idxs`; rows past len(idxs) up to B stay empty."""
+    if C % 4 != 0:
+        raise ValueError(f"C={C} not a multiple of 4")
+    n = len(idxs)
+    Bp = max(B or n, n)
+    shapes = (
+        ((Bp, R, C // 4), torch.uint8), ((Bp, R), torch.int32),
+        ((Bp, L), torch.uint8), ((Bp, NI), torch.uint8), ((Bp,), torch.int32),
+    )
+    ts = tuple(
+        torch.zeros(s, dtype=dt, pin_memory=pin_memory) for s, dt in shapes
+    )
+    ops, starts, bb, ins, Lr = (t.numpy() for t in ts)
+    ia = np.asarray(idxs, dtype=np.int32)
+
+    def p(a, typ):
+        return a.ctypes.data_as(ctypes.POINTER(typ))
+
+    rc = eng._lib.dagcon_enc_fill_packed(
+        eng._h, p(ia, ctypes.c_int32), n, R, C, L, NI,
+        p(ops, ctypes.c_uint8), p(starts, ctypes.c_int32),
+        p(bb, ctypes.c_uint8), p(ins, ctypes.c_uint8), p(Lr, ctypes.c_int32),
+    )
+    if rc != 0:
+        raise ValueError(f"encoded target does not fit caps (rc={rc})")
+    return ts

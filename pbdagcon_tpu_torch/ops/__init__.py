@@ -1,4 +1,8 @@
-"""Tensor path of the port: the batched consensus DP (`dp.py`), its
-hand-written CUDA kernel (`dp_cuda.py`, `csrc/dp_scan.cu`) and the nvcc
-build and loader (`_build.py`). The host linearizer is shared with the
-JAX package (`pbdagcon_tpu.ops.linearize`)."""
+"""Tensor path of the port: the batched consensus DP (`dp.py`), the
+device graph build (`devbuild_torch.py`), the device backtrack
+(`devemit.py`), the histogram/scatter/gather wrappers (`mxu.py`), the
+hand-written CUDA kernels (`csrc/dp_scan.cu` via `dp_cuda.py`,
+`csrc/hist_scatter.cu` via `mxu_cuda.py`) and the nvcc build and loader
+(`_build.py`). The host linearizer and the NumPy build oracle are shared
+with the JAX package (`pbdagcon_tpu.ops.linearize`,
+`pbdagcon_tpu.ops.devbuild`)."""

@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels (`csrc/dp_scan.cu`,
+`csrc/hist_scatter.cu`).
 
 `nvcc` compiles `csrc/<name>.cu` at first use into a shared library with
 a plain C interface, in `pbdagcon_tpu_torch/_build/` (listed in
@@ -96,6 +97,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     if name == "dp_scan":
         lib.dagcon_dp_scan.restype = ci
         lib.dagcon_dp_scan.argtypes = [vp] * 8 + [ci] * 4 + [vp]
+    if name == "hist_scatter":
+        lib.dagcon_hist.restype = ci
+        lib.dagcon_hist.argtypes = [vp, vp, ci, ci, ci, vp]
+        lib.dagcon_scatter.restype = ci
+        lib.dagcon_scatter.argtypes = [
+            vp, ctypes.POINTER(vp), ctypes.POINTER(vp), ci, ci, ci, ci,
+            ctypes.c_uint, vp,
+        ]
     lib.dagcon_cuda_error_string.restype = ctypes.c_char_p
     lib.dagcon_cuda_error_string.argtypes = [ci]
 

@@ -11,6 +11,8 @@ whatever the backend.
 Backends (`DagconConfig.backend`):
 - "cuda": batched DP in the hand-written kernel (`ops/dp_cuda.py`) on
   `cfg.device`; with device "cpu", its plain PyTorch version.
+- "devbuild": graph build, DP and backtrack all on `cfg.device`
+  (`devpipe.py`); the host encodes and assembles the fragments.
 - "host": host DP only (the native engine end to end when built).
 - "auto": "cuda".
 
@@ -69,7 +71,9 @@ class PipelineStats:
     dropped_records: int = 0
     dropped_groups: int = 0
     # Why targets took the host DP: "oversize" (n past every V bucket),
-    # "long_edges" (more long edges than the K register file holds).
+    # "long_edges" (more long edges than the K register file holds); on
+    # the devbuild path, "oversize" (past every shape ladder) and the
+    # reasons of `devpipe.FLAG_REASONS`, "ambiguous" and "overflow".
     fallback_reasons: dict[str, int] = dataclasses.field(default_factory=dict)
     # Host-clock seconds per stage of the native-loader path, summed
     # over batches: "linearize" (producer thread), "pack", "dispatch"
@@ -576,6 +580,29 @@ def run_stream(
     """Reference-CLI-equivalent entry: M5/'pre' text stream in, FASTA out."""
     stats = PipelineStats()
     backend = resolve_backend(cfg)
+    if backend == "devbuild":
+        from pbdagcon_tpu_torch.devpipe import (
+            run_devbuild_native,
+            run_devbuild_pipeline,
+        )
+
+        device = _device(cfg)
+        if cfg.use_native and native.available():
+            run_devbuild_native(stream, out, cfg, stats, device, journal=journal)
+        else:
+            for sid, results in run_devbuild_pipeline(
+                read_groups(stream, cfg.fmt), cfg, stats, device
+            ):
+                out.write_target(sid, results)
+                if journal is not None:
+                    journal.mark(sid)
+        log.info(
+            "devbuild: targets=%d fragments=%d bases=%d batches=%d "
+            "host_fallbacks=%d %s",
+            stats.targets, stats.fragments, stats.consensus_bases,
+            stats.batches, stats.host_fallbacks, stats.fallback_reasons,
+        )
+        return stats
     if cfg.use_native and native.available():
         _run_stream_native(stream, out, cfg, backend, stats, journal=journal)
     else:

@@ -22,7 +22,7 @@ def _headers(text: str) -> list[str]:
     return sorted(l for l in text.splitlines() if l.startswith(">"))
 
 
-@pytest.mark.parametrize("backend", ["cuda", "host"])
+@pytest.mark.parametrize("backend", ["cuda", "host", "devbuild"])
 def test_golden_cli_subprocess(backend):
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=ROOT)
     res = subprocess.run(

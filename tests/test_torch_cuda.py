@@ -1,8 +1,9 @@
 """Tests of the port that need a CUDA card (marker `cuda`): the
-hand-written DP kernel against its plain PyTorch version, bitwise, and
-the golden files through the port with the DP on the card. Each skips
-without a card. This file imports no jax, so it runs on a machine
-without it:
+hand-written kernels against their plain PyTorch versions (the DP
+bitwise, the histogram and scatter with integer equality), the golden
+files through the port with the DP on the card, and the devbuild path on
+the card against the CPU and the host engine. Each skips without a
+card. This file imports no jax, so it runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
@@ -15,11 +16,12 @@ import pytest
 import torch
 
 from pbdagcon_tpu.io import FastaWriter
+from pbdagcon_tpu.simulate import NoiseProfile, simulate_targets, to_m5
 from pbdagcon_tpu_torch import native
 from pbdagcon_tpu_torch.config import DagconConfig
 from pbdagcon_tpu_torch.convert import batch_to_torch
 from pbdagcon_tpu_torch.ops import dp as tdp
-from pbdagcon_tpu_torch.ops import dp_cuda
+from pbdagcon_tpu_torch.ops import dp_cuda, mxu, mxu_cuda
 from pbdagcon_tpu_torch.pipeline import run_stream
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
@@ -107,3 +109,139 @@ def test_golden_align_on_card(card):
                          device="cuda", batch_targets=2),
         )
     assert out.getvalue() == open(os.path.join(DATA, "golden2.fa")).read()
+
+
+# (B, N, D): B not a multiple of 8; D on both sides of the kernel's
+# shared-memory limit (48K bins); a single element.
+@pytest.mark.parametrize("B,N,D", [
+    (3, 700, 257), (37, 41000, 15000), (5, 5000, 60000), (129, 100, 8),
+    (1, 1, 1), (7, 20000, 245000),
+])
+def test_hist_kernel_matches_plain_version(card, B, N, D):
+    rng = np.random.default_rng(B * 7 + D)
+    v = torch.from_numpy(rng.integers(-3, D + 5, (B, N)).astype(np.int32)).to(card)
+    before = mxu_cuda.launches["hist"]
+    got = mxu_cuda.hist_cuda(v, D)
+    assert mxu_cuda.launches["hist"] == before + 1
+    want = mxu.hist_reference(v, D)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B,N,D,nbytes,repeat", [
+    (3, 700, 800, 1, False), (37, 5000, 5000, 2, False),
+    (5, 40000, 4000, 4, True), (11, 3000, 300, 3, True),
+])
+def test_scatter_kernel_matches_plain_version(card, B, N, D, nbytes, repeat):
+    """Negative and over-wide payloads, ranks below 0 and past D, unique
+    ranks (a transport) or repeated ones (a wrapping sum)."""
+    rng = np.random.default_rng(N + nbytes)
+    if repeat:
+        r = rng.integers(-3, D + 5, (B, N))
+    else:
+        r = np.stack([rng.permutation(N) for _ in range(B)]) - 2
+    r = torch.from_numpy(r.astype(np.int32)).to(card)
+    ps = tuple(
+        torch.from_numpy(
+            rng.integers(-(1 << 31), (1 << 31) - 1, (B, N)).astype(np.int32)
+        ).to(card)
+        for _ in range(2)
+    )
+    mask = (1 << (8 * nbytes)) - 1
+    before = mxu_cuda.launches["scatter"]
+    got = mxu_cuda.scatter_cuda(r, ps, D, mask)
+    assert mxu_cuda.launches["scatter"] == before + 1
+    want = mxu.scatter_reference(r, ps, D, mask)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_mxu_wrappers_on_card_equal_cpu(card):
+    rng = np.random.default_rng(9)
+    v = rng.integers(-2, 600, (6, 3000)).astype(np.int32)
+    m = rng.random((6, 3000)) < 0.8
+    w = rng.integers(0, 1 << 20, (6, 3000)).astype(np.int32)
+    for dev in (card, torch.device("cpu")):
+        vt, mt, wt = (torch.from_numpy(x).to(dev) for x in (v, m, w))
+        res = [mxu.mxu_hist(vt, mt, 512)]
+        res += list(mxu.mxu_weighted_hist(vt, mt, (wt,), 512))
+        res += list(mxu.mxu_scatter(vt, mt, (wt,), 700, max_payload=1 << 24))
+        res.append(mxu.mxu_gather(wt, vt, max_val=1 << 20, valid=mt))
+        if dev == card:
+            got = [x.cpu() for x in res]
+        else:
+            want = res
+    assert all(torch.equal(g, x) for g, x in zip(got, want))
+
+
+def test_kernel_wrappers_reject_what_they_do_not_take(card):
+    v = torch.zeros((3, 10), dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        mxu_cuda.hist_cuda(v.long(), 4)
+    with pytest.raises(ValueError):
+        mxu_cuda.hist_cuda(v.t(), 4)
+    with pytest.raises(ValueError):
+        mxu_cuda.scatter_cuda(v, (v,) * 5, 4, 0xFF)
+    with pytest.raises(ValueError):
+        mxu_cuda.scatter_cuda(v, (v[:, :5].contiguous(),), 4, 0xFF)
+
+
+def _devbuild_text() -> str:
+    lines = [
+        to_m5(a)
+        for _t, _b, alns in simulate_targets(4242, 40, 300, 20, NoiseProfile())
+        for a in alns
+    ]
+    return "\n".join(lines) + "\n"
+
+
+@pytest.mark.parametrize("use_native", [True, False])
+def test_devbuild_on_card_matches_host(card, use_native):
+    if use_native and not native.available():
+        pytest.skip("native library not built")
+    text = _devbuild_text()
+    kw = dict(min_weight=5, min_length=50, use_native=use_native)
+    want = io.StringIO()
+    run_stream(io.StringIO(text), FastaWriter(want),
+               DagconConfig(backend="host", **kw))
+    before = (dp_cuda.launches, dict(mxu_cuda.launches))
+    got = io.StringIO()
+    stats = run_stream(io.StringIO(text), FastaWriter(got),
+                       DagconConfig(backend="devbuild", device="cuda", **kw))
+    assert got.getvalue() == want.getvalue()
+    assert stats.targets == 40 and stats.host_fallbacks < 40
+    assert dp_cuda.launches > before[0]
+    for k in ("hist", "scatter"):
+        assert mxu_cuda.launches[k] > before[1][k]
+
+
+def test_device_build_on_card_equals_cpu(card):
+    """Every output array of the device build, built on the card (the
+    kernels, CUDA sorts and gathers) and on the CPU (plain versions)."""
+    from pbdagcon_tpu.ops.devbuild import encode_group
+    from pbdagcon_tpu_torch.devpipe import _pack_batch
+    from pbdagcon_tpu_torch.ops.devbuild_torch import Caps, device_build
+
+    caps = Caps(B=8, R=24, C=400, L=320, CH=64, SM=12, NC=1536, ND=1536,
+                SE=16, DQ=8, V=1536, W=64)
+    encs = [
+        encode_group(bb, alns, sid=str(t))
+        for t, bb, alns in simulate_targets(5, 8, 300, 18, NoiseProfile())
+    ]
+    host = _pack_batch(encs, caps)
+
+    def flat(tree, pre=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from flat(v, f"{pre}.{k}")
+        else:
+            yield pre, tree
+
+    outs = [
+        dict(flat(device_build(*(torch.from_numpy(a).to(d) for a in host), caps)))
+        for d in (card, torch.device("cpu"))
+    ]
+    assert set(outs[0]) == set(outs[1])
+    for k, v in outs[1].items():
+        assert torch.equal(outs[0][k].cpu(), v), k
+    assert not outs[1][".flags"].all()

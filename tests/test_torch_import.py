@@ -44,8 +44,10 @@ def test_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr[-3000:]
     names = set(res.stdout.split())
-    for mod in ("cli", "config", "convert", "native", "pipeline",
-                "ops.dp", "ops.dp_cuda", "ops._build", "parallel.journal"):
+    for mod in ("cli", "config", "convert", "native", "pipeline", "devpipe",
+                "ops.dp", "ops.dp_cuda", "ops._build", "ops.mxu",
+                "ops.mxu_cuda", "ops.devbuild_torch", "ops.devemit",
+                "parallel.journal"):
         assert f"pbdagcon_tpu_torch.{mod}" in names
 
 
@@ -62,11 +64,15 @@ def test_no_jax_import_in_port_sources():
             assert not pat.search(f.read()), path
 
 
-@pytest.mark.parametrize("backend", ["xla", "blocked", "pallas", "devbuild",
-                                     "hybrid"])
+@pytest.mark.parametrize("backend", ["xla", "blocked", "pallas", "hybrid"])
 def test_tpu_backends_not_ported(backend):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DagconConfig(backend=backend)
+
+
+def test_devbuild_backend_is_ported():
+    cfg = DagconConfig(backend="devbuild", device="cpu")
+    assert (cfg.backend, cfg.device) == ("devbuild", "cpu")
 
 
 def test_config_rejects_and_defaults():
@@ -90,8 +96,9 @@ def test_config_from_jax():
     assert (p.min_weight, p.min_length, p.fmt, p.align, p.v_buckets,
             p.batch_targets, p.threads) == (3, 77, "pre", True, (512,), 9, 2)
     assert config_from_jax(JaxConfig(backend="host")).backend == "host"
+    assert config_from_jax(JaxConfig(backend="devbuild")).backend == "devbuild"
     with pytest.raises(NotImplementedError):
-        config_from_jax(JaxConfig(backend="devbuild"))
+        config_from_jax(JaxConfig(backend="hybrid"))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -103,5 +110,6 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.load("dp_scan")
+    for name in ("dp_scan", "hist_scatter"):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.load(name)
