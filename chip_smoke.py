@@ -6,7 +6,8 @@ Phases, in order; any failure exits non-zero before the last line:
 
 1. Require CUDA, print the card's name and power limit, build the native
    engine (`make -C native`) and the kernels (`csrc/dp_scan.cu`,
-   `csrc/hist_scatter.cu`: one nvcc each, started together, sm_90a).
+   `csrc/hist_scatter.cu`, `csrc/pk_variants.cu`: one nvcc each, started
+   together, sm_90a).
 2. Hold the DP kernel against its plain PyTorch version on the card,
    bitwise (0 ulp): random arena batches over W in {16,32,64,128} x K in
    {8,32,128} (B not a multiple of 32, long edges, unsup nodes, -1 gaps),
@@ -23,7 +24,15 @@ Phases, in order; any failure exits non-zero before the last line:
    1/2/4-byte cuts, repeated ranks, domains on both sides of the
    shared-memory limit), then every hist and scatter call of one bench
    window's device build, captured from the build and timed (kernel and
-   plain) with CUDA events.
+   plain, the window's calls replayed from a CUDA graph) with CUDA events.
+4b. The kernel-variant microbench's kernels P1-P3 (`hist_v1`, `hist_v2`,
+   `pallas_scatter`) against their plain versions, integer-equal: random
+   cases, the microbench's shapes and every hist/scatter call of the
+   bench window from phase 4 (each where the kernel takes the shape),
+   timed per window beside B2/B3 and the plain versions (the window's
+   calls replayed from a CUDA graph: device time); then the
+   microbench itself (`pbdagcon_tpu_torch.tools.prof_pk`) once at full
+   size, whose lines must agree and whose run must launch all three.
 5. The devbuild path at full size: the bench workload through
    `pipeline.run_stream` with backend "devbuild" (batch_targets=128),
    warm-up then 3 runs; every FASTA byte-equal to the single-thread
@@ -48,7 +57,7 @@ SEED = 1234
 TARGETS, LENGTH, COVERAGE = 512, 1000, 30
 GRID_B, GRID_V = 37, 700
 DEVBUILD_BATCH = 128  # bench.py's batch_targets for the devbuild path
-KERNEL_SOURCES = ("dp_scan", "hist_scatter")
+KERNEL_SOURCES = ("dp_scan", "hist_scatter", "pk_variants")
 
 
 def log(*a) -> None:
@@ -93,6 +102,27 @@ def time_ms(fn, reps: int) -> float:
     t0.record()
     for _ in range(reps):
         fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device ms of `fn` captured once in a CUDA graph and replayed
+    `reps` times (no host launch cost in the time)."""
+    import torch
+
+    fn()  # warm-up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        graph.replay()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
@@ -405,18 +435,118 @@ def main() -> int:
             if not ok:
                 raise SystemExit(f"chip_smoke: {name} kernel != plain "
                                  f"version on a bench window call")
-        # In turns (plain, kernel, kernel, plain); ms for all the
-        # window's calls of the kernel.
-        pa = time_ms(lambda: run(True), 5)
-        ka = time_ms(lambda: run(False), 20)
-        kb = time_ms(lambda: run(False), 20)
-        pb = time_ms(lambda: run(True), 5)
+        # In turns (plain, kernel, kernel, plain); device ms for all the
+        # window's calls of the kernel, replayed from a CUDA graph (an
+        # eager loop would time the host's launches).
+        pa = graph_ms(lambda: run(True), 20)
+        ka = graph_ms(lambda: run(False), 20)
+        kb = graph_ms(lambda: run(False), 20)
+        pb = graph_ms(lambda: run(True), 20)
         timed[name] = ((ka + kb) / 2, (pa + pb) / 2)
         shapes = sorted({tuple(c[0].shape) + (c[-1] if name == "hist" else c[2],)
                          for c in calls[name]})
         log(f"{name}: {len(calls[name])} calls per bench window (B, N, D in "
             f"{shapes}), all equal to the plain version; kernel {ka} / {kb} "
-            f"ms, plain PyTorch {pa} / {pb} ms per window [{card}]")
+            f"ms, plain PyTorch {pa} / {pb} ms; device ms per window (CUDA "
+            f"graph) [{card}]")
+
+    # ---- phase 4b: the microbench's kernels P1-P3 vs plain versions ----
+    from pbdagcon_tpu_torch.ops import pk_cuda
+    from pbdagcon_tpu_torch.tools import prof_pk
+
+    p_hist = {"hist_v1": pk_cuda.hist_v1_cuda, "hist_v2": pk_cuda.hist_v2_cuda}
+    worst_p = {"hist_v1": 0, "hist_v2": 0, "pallas_scatter": 0}
+
+    def takes(name, D) -> bool:
+        return name != "hist_v2" or D <= pk_cuda.MAX_ROW_BINS
+
+    def hold(name, pairs, what) -> None:
+        worst_p[name] = max([worst_p[name]] + [int_err(a, b) for a, b in pairs])
+        if not all(torch.equal(a, b) for a, b in pairs):
+            raise SystemExit(f"chip_smoke: {name} kernel != plain version "
+                             f"({what})")
+
+    def hold_hist(values, D, what) -> None:
+        want = mxu.hist_reference(values, D)
+        for name, f in p_hist.items():
+            if takes(name, D):
+                hold(name, [(f(values, D), want)], what)
+
+    def hold_scatter(ranks, payloads, D, mask, what) -> None:
+        hold("pallas_scatter", list(zip(
+            pk_cuda.scatter_tile_cuda(ranks, payloads, D, mask),
+            mxu.scatter_reference(ranks, payloads, D, mask))), what)
+
+    rng = np.random.default_rng(SEED + 3)
+    # Random cases, then the microbench's shapes (B = 128).
+    for B, N, D in ((3, 700, 257), (37, 41000, 15000), (129, 100, 8),
+                    (5, 0, 300), (5, 5000, 48 * 1024), (7, 20000, 245000),
+                    (128, 40960, 1026), (128, 40960, 9234), (128, 6144, 8208)):
+        v = rng.integers(-3, D + 300, (B, N)).astype(np.int32)
+        v[:, 1::29] = D - 1
+        hold_hist(torch.from_numpy(v).to(dev), D, f"B={B} N={N} D={D}")
+        log(f"hist_v1{'/v2' if takes('hist_v2', D) else ''} B={B} N={N} "
+            f"D={D}: equal")
+    for B, N, D, nb, NP, rep in (
+            (3, 700, 800, 1, 1, False), (37, 5000, 5000, 2, 2, False),
+            (5, 40000, 4000, 4, 3, True), (11, 3000, 300, 3, 4, True),
+            (7, 30000, 70001, 2, 1, True), (6, 20000, 60000, 4, 4, False),
+            (128, 6144, 78848, 4, 2, False), (128, 6144, 5632, 4, 2, True),
+            (128, 3072, 12 * 5632, 4, 2, False)):
+        r = (rng.integers(-3, D + 5, (B, N)) if rep else
+             np.stack([rng.permutation(D + 5)[:N] for _ in range(B)]) - 2)
+        ps = tuple(torch.from_numpy(rng.integers(
+            -(1 << 31), (1 << 31) - 1, (B, N)).astype(np.int32)).to(dev)
+            for _ in range(NP))
+        what = f"B={B} N={N} D={D} nbytes={nb} NP={NP} repeated={rep}"
+        hold_scatter(torch.from_numpy(r.astype(np.int32)).to(dev), ps, D,
+                     (1 << (8 * nb)) - 1, what)
+        log(f"pallas_scatter {what}: equal")
+    for values, D in calls["hist"]:
+        hold_hist(values, D, "a bench window call")
+    for ranks, payloads, D, mask in calls["scatter"]:
+        hold_scatter(ranks, payloads, D, mask, "a bench window call")
+    torch.cuda.synchronize()
+
+    # Device ms per bench window (the window's calls replayed from a CUDA
+    # graph), in turns (plain, B, P..., P..., B, plain), on the calls that
+    # every variant takes.
+    hist_calls = [c for c in calls["hist"] if takes("hist_v2", c[1])]
+    variants = {
+        "hist": (hist_calls, {"plain": mxu.hist_reference, "B2": real_hist,
+                              **p_hist}),
+        "scatter": (calls["scatter"], {"plain": mxu.scatter_reference,
+                                       "B3": real_scatter,
+                                       "pallas_scatter":
+                                           pk_cuda.scatter_tile_cuda}),
+    }
+    window_ms = {}
+    for op, (cs, fns) in variants.items():
+        ms = {k: [] for k in fns}
+        for k in list(fns) + list(fns)[::-1]:
+            ms[k].append(graph_ms(lambda f=fns[k]: [f(*c) for c in cs], 20))
+        window_ms.update({k: sum(v) / 2 for k, v in ms.items()
+                          if k not in ("B2", "B3", "plain")})
+        window_ms[f"{op} plain"] = sum(ms["plain"]) / 2
+        log(f"{op}: {len(cs)} of {len(calls[op])} bench window calls, all "
+            f"equal to the plain version; device ms per window (CUDA graph): "
+            + ", ".join(f"{k} {v[0]} / {v[1]}" for k, v in ms.items())
+            + f" [{card}]")
+        for c in cs:  # one reading per call and design
+            shape = tuple(c[0].shape) + (c[1] if op == "hist" else c[2],)
+            log(f"  {op} B, N, D = {shape}: device ms " + ", ".join(
+                f"{k} {graph_ms(lambda f=f, c=c: f(*c), 20):.4f}"
+                for k, f in fns.items()))
+
+    # The microbench at full size: the variants' own main path.
+    for k in pk_cuda.launches:
+        pk_cuda.launches[k] = 0
+    prof_ms, disagree = prof_pk.run(dev)
+    pk_launches = dict(pk_cuda.launches)
+    if disagree or any(v == 0 for v in pk_launches.values()):
+        raise SystemExit(f"chip_smoke: the microbench failed (lines of "
+                         f"{disagree} disagree; launches {pk_launches})")
+    log(f"prof_pk: every shape's lines agree; launches {pk_launches} [{card}]")
     del calls, inputs, host
 
     # ---- phase 5: the devbuild path at full size ----
@@ -502,7 +632,19 @@ def main() -> int:
         "max_abs_err": worst_k["scatter"],
         "ms": sc_ms,
         "plain_ms": sc_plain,
-    }]}), flush=True)
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "pbdagcon_tpu_torch/csrc/pk_variants.cu",
+        "replaces": f"tools/prof_pk.py:{line}",
+        "launches": pk_launches[name],
+        "max_abs_err": worst_p[name],
+        "ms": window_ms[name],
+        "plain_ms": window_ms[f"{op} plain"],
+        "prof_pk_ms": {k: v for k, v in prof_ms.items() if tag in k},
+    } for name, line, op, tag in (
+        ("hist_v1", 58, "hist", "v1 P1"), ("hist_v2", 113, "hist", "v2 P2"),
+        ("pallas_scatter", 169, "scatter", "P3"))]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count(),

@@ -6,7 +6,8 @@ of the JAX package are shared by import, not copied: the alignment
 records and parsers, the IO, the graph oracle, the host linearizer, the
 `-a` aligner, the simulator and the native C++ engine's bindings.
 
-Layer map (slices: the native-loader consensus path, the devbuild path):
+Layer map (slices: the native-loader consensus path, the devbuild path,
+the kernel-variant microbench):
 
 - `config`    : `DagconConfig` (backends "cuda", "devbuild", "host",
                 "auto").
@@ -26,6 +27,11 @@ Layer map (slices: the native-loader consensus path, the devbuild path):
                 and the clamped gathers.
 - `ops.mxu_cuda` + `csrc/hist_scatter.cu`: the hand-written Hopper
                 histogram and scatter kernels.
+- `ops.pk`, `ops.pk_cuda` + `csrc/pk_variants.cu`: three other designs
+                of them (tensor-core one-hots, a row per block,
+                shared-memory D tiles).
+- `tools.prof_pk`: the kernel-variant microbench
+                (`python -m pbdagcon_tpu_torch.tools.prof_pk`).
 - `convert`   : config, packed batches and device-build arrays from the
                 JAX package.
 - `parallel`  : the completed-target journal.

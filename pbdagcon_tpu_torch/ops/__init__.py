@@ -1,8 +1,9 @@
 """Tensor path of the port: the batched consensus DP (`dp.py`), the
 device graph build (`devbuild_torch.py`), the device backtrack
 (`devemit.py`), the histogram/scatter/gather wrappers (`mxu.py`), the
+kernel-variant microbench's histograms and scatter (`pk.py`), the
 hand-written CUDA kernels (`csrc/dp_scan.cu` via `dp_cuda.py`,
-`csrc/hist_scatter.cu` via `mxu_cuda.py`) and the nvcc build and loader
-(`_build.py`). The host linearizer and the NumPy build oracle are shared
+`csrc/hist_scatter.cu` via `mxu_cuda.py`, `csrc/pk_variants.cu` via
+`pk_cuda.py`) and the nvcc build and loader (`_build.py`). The host linearizer and the NumPy build oracle are shared
 with the JAX package (`pbdagcon_tpu.ops.linearize`,
 `pbdagcon_tpu.ops.devbuild`)."""

@@ -1,5 +1,5 @@
 """Build and load the port's CUDA kernels (`csrc/dp_scan.cu`,
-`csrc/hist_scatter.cu`).
+`csrc/hist_scatter.cu`, `csrc/pk_variants.cu`).
 
 `nvcc` compiles `csrc/<name>.cu` at first use into a shared library with
 a plain C interface, in `pbdagcon_tpu_torch/_build/` (listed in
@@ -102,6 +102,15 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.dagcon_hist.argtypes = [vp, vp, ci, ci, ci, vp]
         lib.dagcon_scatter.restype = ci
         lib.dagcon_scatter.argtypes = [
+            vp, ctypes.POINTER(vp), ctypes.POINTER(vp), ci, ci, ci, ci,
+            ctypes.c_uint, vp,
+        ]
+    if name == "pk_variants":
+        for fn in (lib.dagcon_hist_mma, lib.dagcon_hist_row):
+            fn.restype = ci
+            fn.argtypes = [vp, vp, ci, ci, ci, vp]
+        lib.dagcon_scatter_tile.restype = ci
+        lib.dagcon_scatter_tile.argtypes = [
             vp, ctypes.POINTER(vp), ctypes.POINTER(vp), ci, ci, ci, ci,
             ctypes.c_uint, vp,
         ]

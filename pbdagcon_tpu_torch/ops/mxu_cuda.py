@@ -62,14 +62,9 @@ def hist_cuda(values: torch.Tensor, D: int) -> torch.Tensor:
     return out
 
 
-def scatter_cuda(
-    ranks: torch.Tensor, payloads: tuple[torch.Tensor, ...], D: int,
-    cut_mask: int,
-) -> tuple[torch.Tensor, ...]:
-    """out[k][b, ranks[b, n]] += payloads[k][b, n] & cut_mask, int32 with
-    wraparound, by the CUDA kernel; ranks outside [0, D) dropped.
-    ranks and each payload: [B, N] int32, contiguous. Returns one [B, D]
-    int32 tensor per payload."""
+def _check_scatter(ranks, payloads, D: int, cut_mask: int) -> tuple[int, int]:
+    """(B, N) of a scatter's arguments; raises on what the kernels do not
+    take."""
     B, N = _dims(ranks, D)
     if not 1 <= len(payloads) <= MAX_PAYLOADS:
         raise ValueError(f"kernel takes 1..{MAX_PAYLOADS} payloads, got "
@@ -79,6 +74,18 @@ def scatter_cuda(
     _check_rows(ranks, "ranks", (B, N), ranks.device)
     for k, p in enumerate(payloads):
         _check_rows(p, f"payloads[{k}]", (B, N), ranks.device)
+    return B, N
+
+
+def scatter_cuda(
+    ranks: torch.Tensor, payloads: tuple[torch.Tensor, ...], D: int,
+    cut_mask: int,
+) -> tuple[torch.Tensor, ...]:
+    """out[k][b, ranks[b, n]] += payloads[k][b, n] & cut_mask, int32 with
+    wraparound, by the CUDA kernel; ranks outside [0, D) dropped.
+    ranks and each payload: [B, N] int32, contiguous. Returns one [B, D]
+    int32 tensor per payload."""
+    B, N = _check_scatter(ranks, payloads, D, cut_mask)
     lib = _build.load("hist_scatter")
     outs = tuple(
         torch.zeros((B, D), dtype=torch.int32, device=ranks.device)

@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA card (marker `cuda`): the
 hand-written kernels against their plain PyTorch versions (the DP
-bitwise, the histogram and scatter with integer equality), the golden
+bitwise; the histogram and scatter kernels, the microbench's variants
+among them, with integer equality), the golden
 files through the port with the DP on the card, and the devbuild path on
 the card against the CPU and the host engine. Each skips without a
 card. This file imports no jax, so it runs on a machine without it:
@@ -21,7 +22,7 @@ from pbdagcon_tpu_torch import native
 from pbdagcon_tpu_torch.config import DagconConfig
 from pbdagcon_tpu_torch.convert import batch_to_torch
 from pbdagcon_tpu_torch.ops import dp as tdp
-from pbdagcon_tpu_torch.ops import dp_cuda, mxu, mxu_cuda
+from pbdagcon_tpu_torch.ops import dp_cuda, mxu, mxu_cuda, pk, pk_cuda
 from pbdagcon_tpu_torch.pipeline import run_stream
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
@@ -184,6 +185,107 @@ def test_kernel_wrappers_reject_what_they_do_not_take(card):
         mxu_cuda.scatter_cuda(v, (v,) * 5, 4, 0xFF)
     with pytest.raises(ValueError):
         mxu_cuda.scatter_cuda(v, (v[:, :5].contiguous(),), 4, 0xFF)
+
+
+# The kernel-variant microbench's kernels (P1-P3). (B, N, D): B not a
+# multiple of 8, D not a multiple of 128 (and one that is), N = 0 (the
+# output is torch.empty, so every bin must be written), P2's largest
+# domain, then the microbench's shapes.
+PK_HIST_CASES = [
+    (3, 700, 257), (37, 41000, 15000), (129, 100, 8), (1, 1, 1), (5, 0, 300),
+    (9, 3001, 384), (5, 5000, 48 * 1024), (128, 40960, 1026),
+    (128, 40960, 9234), (128, 6144, 8208),
+]
+
+
+@pytest.mark.parametrize("name", ["hist_v1", "hist_v2"])
+@pytest.mark.parametrize("B,N,D", PK_HIST_CASES)
+def test_pk_hist_kernels_match_plain_version(card, name, B, N, D):
+    rng = np.random.default_rng(B * 7 + N + D)
+    v = rng.integers(-3, D + 300, (B, N)).astype(np.int32)
+    v[:, 1::29] = D - 1
+    v = torch.from_numpy(v).to(card)
+    before = pk_cuda.launches[name]
+    got = getattr(pk_cuda, f"{name}_cuda")(v, D)
+    assert pk_cuda.launches[name] == before + 1
+    want = mxu.hist_reference(v, D)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_pk_hist_v1_past_the_shared_memory_limit(card):
+    rng = np.random.default_rng(3)
+    v = torch.from_numpy(rng.integers(-3, 245005, (7, 20000)).astype(np.int32))
+    got = pk.hist_v1(v.to(card), 245000)
+    assert torch.equal(got.cpu(), mxu.hist_reference(v, 245000))
+
+
+# (B, N, D, nbytes, NP, repeat): D past one shared-memory tile at every
+# NP (several tiles per row), unique and repeated ranks, then the
+# microbench's shapes.
+PK_SCATTER_CASES = [
+    (3, 700, 800, 1, 1, False), (37, 5000, 5000, 2, 2, False),
+    (5, 40000, 4000, 4, 3, True), (11, 3000, 300, 3, 4, True),
+    (3, 0, 100, 4, 2, False), (7, 30000, 70001, 2, 1, True),
+    (6, 20000, 60000, 4, 4, False), (128, 6144, 78848, 4, 2, False),
+    (128, 6144, 5632, 4, 2, True), (128, 3072, 12 * 5632, 4, 2, False),
+]
+
+
+@pytest.mark.parametrize("B,N,D,nbytes,NP,repeat", PK_SCATTER_CASES)
+def test_pk_scatter_kernel_matches_plain_version(card, B, N, D, nbytes, NP,
+                                                 repeat):
+    """Negative and over-wide payloads, ranks below 0 and past D."""
+    rng = np.random.default_rng(N + D + nbytes)
+    if repeat:
+        r = rng.integers(-3, D + 5, (B, N))
+    else:
+        r = np.stack([rng.permutation(D + 5)[:N] for _ in range(B)]) - 2
+    r = torch.from_numpy(r.astype(np.int32)).to(card)
+    ps = tuple(
+        torch.from_numpy(
+            rng.integers(-(1 << 31), (1 << 31) - 1, (B, N)).astype(np.int32)
+        ).to(card)
+        for _ in range(NP)
+    )
+    mask = (1 << (8 * nbytes)) - 1
+    before = pk_cuda.launches["pallas_scatter"]
+    got = pk_cuda.scatter_tile_cuda(r, ps, D, mask)
+    assert pk_cuda.launches["pallas_scatter"] == before + 1
+    want = mxu.scatter_reference(r, ps, D, mask)
+    torch.cuda.synchronize()
+    assert len(got) == NP and all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_pk_variants_on_card_equal_cpu(card):
+    rng = np.random.default_rng(21)
+    v = rng.integers(-2, 1400, (6, 3000)).astype(np.int32)
+    w = rng.integers(-(1 << 31), (1 << 31) - 1, (6, 3000)).astype(np.int32)
+    res = {}
+    for dev in (card, torch.device("cpu")):
+        vt, wt = (torch.from_numpy(x).to(dev) for x in (v, w))
+        res[dev.type] = [pk.hist_v0(vt, 1300), pk.hist_v1(vt, 1300),
+                         pk.hist_v2(vt, 1300),
+                         *pk.pallas_scatter(vt, (wt, vt), 1300, 3)]
+    assert all(torch.equal(g.cpu(), x) for g, x in zip(res["cuda"], res["cpu"]))
+
+
+def test_pk_wrappers_reject_what_they_do_not_take(card):
+    v = torch.zeros((3, 10), dtype=torch.int32, device=card)
+    for f in (pk_cuda.hist_v1_cuda, pk_cuda.hist_v2_cuda):
+        with pytest.raises(TypeError):
+            f(v.long(), 4)
+        with pytest.raises(ValueError, match="contiguous"):
+            f(v.t(), 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        pk_cuda.hist_v2_cuda(v, pk_cuda.MAX_ROW_BINS + 1)
+    with pytest.raises(TypeError):
+        pk_cuda.scatter_tile_cuda(v, (v.long(),), 4, 0xFF)
+    strided = torch.zeros((3, 20), dtype=torch.int32, device=card)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        pk_cuda.scatter_tile_cuda(v, (strided,), 4, 0xFF)
+    with pytest.raises(ValueError):
+        pk_cuda.scatter_tile_cuda(v, (v,) * 5, 4, 0xFF)
 
 
 def _devbuild_text() -> str:

@@ -47,7 +47,7 @@ def test_imports_without_jax():
     for mod in ("cli", "config", "convert", "native", "pipeline", "devpipe",
                 "ops.dp", "ops.dp_cuda", "ops._build", "ops.mxu",
                 "ops.mxu_cuda", "ops.devbuild_torch", "ops.devemit",
-                "parallel.journal"):
+                "ops.pk", "ops.pk_cuda", "tools.prof_pk", "parallel.journal"):
         assert f"pbdagcon_tpu_torch.{mod}" in names
 
 
@@ -110,6 +110,6 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
-    for name in ("dp_scan", "hist_scatter"):
+    for name in ("dp_scan", "hist_scatter", "pk_variants"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build.load(name)
