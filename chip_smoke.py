@@ -195,7 +195,8 @@ def main() -> int:
     log(f"kernels {', '.join(KERNEL_SOURCES)} built in {time.time() - t:.1f}s")
     for name in KERNEL_SOURCES:
         for line in _build.build_logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("registers", "spill", "error",
+                                       "wgmma", "Performance")):
                 log(f"  ptxas {name}: {line.strip()}")
 
     # ---- phase 2: DP kernel vs plain version, bitwise ----
@@ -478,12 +479,19 @@ def main() -> int:
             mxu.scatter_reference(ranks, payloads, D, mask))), what)
 
     rng = np.random.default_rng(SEED + 3)
-    # Random cases, then the microbench's shapes (B = 128).
+    # Random cases, P1's hi-width edges (wgmma widths filled and spilled,
+    # one full tile of HIST_V1_MAX_WIDTH hi rows and one bin past it; N
+    # not a multiple of 4 or 32), then the microbench's shapes (B = 128).
+    # Row 0 of each case puts every value in its last bin.
+    cap = pk_cuda.HIST_V1_MAX_WIDTH * 128
     for B, N, D in ((3, 700, 257), (37, 41000, 15000), (129, 100, 8),
                     (5, 0, 300), (5, 5000, 48 * 1024), (7, 20000, 245000),
+                    (3, 1001, 128), (2, 999, 129), (4, 4099, 1024),
+                    (5, 2050, 1025), (3, 5003, cap), (3, 70001, cap + 1),
                     (128, 40960, 1026), (128, 40960, 9234), (128, 6144, 8208)):
         v = rng.integers(-3, D + 300, (B, N)).astype(np.int32)
         v[:, 1::29] = D - 1
+        v[0] = D - 1
         hold_hist(torch.from_numpy(v).to(dev), D, f"B={B} N={N} D={D}")
         log(f"hist_v1{'/v2' if takes('hist_v2', D) else ''} B={B} N={N} "
             f"D={D}: equal")

@@ -106,9 +106,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             ctypes.c_uint, vp,
         ]
     if name == "pk_variants":
-        for fn in (lib.dagcon_hist_mma, lib.dagcon_hist_row):
-            fn.restype = ci
-            fn.argtypes = [vp, vp, ci, ci, ci, vp]
+        lib.dagcon_hist_wgmma.restype = ci
+        lib.dagcon_hist_wgmma.argtypes = [vp, vp] + [ci] * 6 + [vp]
+        lib.dagcon_hist_row.restype = ci
+        lib.dagcon_hist_row.argtypes = [vp, vp, ci, ci, ci, vp]
         lib.dagcon_scatter_tile.restype = ci
         lib.dagcon_scatter_tile.argtypes = [
             vp, ctypes.POINTER(vp), ctypes.POINTER(vp), ci, ci, ci, ci,

@@ -1,8 +1,9 @@
 """Wrappers of the hand-written Hopper kernels of the kernel-variant
 microbench (`csrc/pk_variants.cu`).
 
-- `hist_v1_cuda` (`hist_mma_kernel`, int8 one-hot products on the tensor
-  cores) replaces the TPU kernel `tools/prof_pk.py::hist_v1`;
+- `hist_v1_cuda` (`hist_wgmma_kernel`, s8 one-hot products on the tensor
+  cores by `wgmma`, sm_90a only, under the launch plan `hist_v1_plan`)
+  replaces the TPU kernel `tools/prof_pk.py::hist_v1`;
 - `hist_v2_cuda` (`hist_row_kernel`, one block per row, the row's whole
   histogram in shared memory) replaces `tools/prof_pk.py::hist_v2`;
 - `scatter_tile_cuda` (`scatter_tile_kernel`, grid (D tile, row), each
@@ -33,6 +34,27 @@ launches = {"hist_v1": 0, "hist_v2": 0, "pallas_scatter": 0}
 MAX_ROW_BINS = 48 * 1024
 # The kernels' bound on N and D (`kMaxExtent`).
 MAX_EXTENT = 1 << 30
+# The N widths PTX allows for an s8 wgmma (m64nNk32), the most hi rows a
+# hist_wgmma block holds (`kMaxHiTile`: the widest of them below 255, so
+# that the sentinel byte is never a row; ptxas keeps its 120 accumulator
+# registers a thread without spills), and the sentinel: the hi byte of a
+# value that counts in no row of the block.
+WGMMA_S8_WIDTHS = (8, 16, 24, *range(32, 257, 16))
+HIST_V1_MAX_WIDTH = 240
+HIST_V1_SENTINEL = 0xFF
+
+
+def hist_v1_plan(D: int) -> tuple[int, int, int]:
+    """P1's launch plan for D bins: (width, tiles, sentinel). The
+    ceil(D / 128) hi rows go to the fewest tiles of at most
+    HIST_V1_MAX_WIDTH rows, evened out, each `width` rows wide: the
+    smallest s8 wgmma width that holds ceil(rows / tiles). Tile k covers
+    hi rows [k * width, (k + 1) * width); none is empty."""
+    rows = max(1, -(-D // 128))
+    tiles = -(-rows // HIST_V1_MAX_WIDTH)
+    need = -(-rows // tiles)
+    width = next(w for w in WGMMA_S8_WIDTHS if w >= need)
+    return width, tiles, HIST_V1_SENTINEL
 
 
 def _check_extent(N: int, D: int) -> None:
@@ -40,7 +62,8 @@ def _check_extent(N: int, D: int) -> None:
         raise ValueError(f"kernel takes N, D <= 2^30; got N={N}, D={D}")
 
 
-def _hist(fn: str, name: str, values: torch.Tensor, D: int) -> torch.Tensor:
+def _hist(fn: str, name: str, values: torch.Tensor, D: int,
+          *plan: int) -> torch.Tensor:
     B, N = _dims(values, D)
     _check_extent(N, D)
     _check_rows(values, "values", (B, N), values.device)
@@ -50,7 +73,7 @@ def _hist(fn: str, name: str, values: torch.Tensor, D: int) -> torch.Tensor:
         with torch.cuda.device(values.device):
             stream = torch.cuda.current_stream(values.device).cuda_stream
             rc = getattr(lib, fn)(values.data_ptr(), out.data_ptr(), B, N, D,
-                                  stream)
+                                  *plan, stream)
         _build.check(lib, rc, f"{name} launch")
         launches[name] += 1
     return out
@@ -60,7 +83,7 @@ def hist_v1_cuda(values: torch.Tensor, D: int) -> torch.Tensor:
     """[B, D] int32 counts of each row's values in [0, D) (others
     dropped) by the tensor-core kernel. values: [B, N] int32,
     contiguous."""
-    return _hist("dagcon_hist_mma", "hist_v1", values, D)
+    return _hist("dagcon_hist_wgmma", "hist_v1", values, D, *hist_v1_plan(D))
 
 
 def hist_v2_cuda(values: torch.Tensor, D: int) -> torch.Tensor:

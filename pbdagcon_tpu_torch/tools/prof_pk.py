@@ -127,7 +127,7 @@ def run(dev: torch.device, small: bool = False,
 
         lines(f"hist[N={N},D={D}]", [
             ("v0 B2 hist_cuda", hist_body(pk.hist_v0)),
-            ("v1 P1 tensor-core mma", hist_body(pk.hist_v1)),
+            ("v1 P1 tensor-core wgmma", hist_body(pk.hist_v1)),
             ("v2 P2 row in smem", hist_body(pk.hist_v2)),
             ("plain scatter_add_", hist_body(mxu.hist_reference)),
         ], put(rng.integers(0, D, (B, N))))

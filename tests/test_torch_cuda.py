@@ -22,7 +22,7 @@ from pbdagcon_tpu_torch import native
 from pbdagcon_tpu_torch.config import DagconConfig
 from pbdagcon_tpu_torch.convert import batch_to_torch
 from pbdagcon_tpu_torch.ops import dp as tdp
-from pbdagcon_tpu_torch.ops import dp_cuda, mxu, mxu_cuda, pk, pk_cuda
+from pbdagcon_tpu_torch.ops import _build, dp_cuda, mxu, mxu_cuda, pk, pk_cuda
 from pbdagcon_tpu_torch.pipeline import run_stream
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
@@ -190,11 +190,17 @@ def test_kernel_wrappers_reject_what_they_do_not_take(card):
 # The kernel-variant microbench's kernels (P1-P3). (B, N, D): B not a
 # multiple of 8, D not a multiple of 128 (and one that is), N = 0 (the
 # output is torch.empty, so every bin must be written), P2's largest
-# domain, then the microbench's shapes.
+# domain, then the microbench's shapes; then P1's hi widths at each
+# padding edge (D = 128 and 1024 fill wgmma widths 8 exactly, 129 and 1025
+# spill into the next; HIST_V1_MAX_WIDTH * 128 is one full tile, one more
+# bin takes two), with N not a multiple of 4 or of 32.
+_CAP = pk_cuda.HIST_V1_MAX_WIDTH * 128
 PK_HIST_CASES = [
     (3, 700, 257), (37, 41000, 15000), (129, 100, 8), (1, 1, 1), (5, 0, 300),
     (9, 3001, 384), (5, 5000, 48 * 1024), (128, 40960, 1026),
     (128, 40960, 9234), (128, 6144, 8208),
+    (3, 1001, 128), (2, 999, 129), (4, 4099, 1024), (5, 2050, 1025),
+    (3, 5003, _CAP), (3, 5003, _CAP + 1),
 ]
 
 
@@ -211,6 +217,45 @@ def test_pk_hist_kernels_match_plain_version(card, name, B, N, D):
     want = mxu.hist_reference(v, D)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("N,D,aligned", [(70001, 9234, True),
+                                          (70000, 1025, False)])
+def test_pk_hist_v1_counts_past_int8_in_one_bin(card, N, D, aligned):
+    """Every value of row 0 in the last bin and of row 1 in bin 0 (counts
+    of N, past any 8- or 16-bit range); rows 2-3 random. Unaligned: the
+    rows start off 16 bytes (the kernel's 4-byte copies)."""
+    rng = np.random.default_rng(N + D)
+    v = rng.integers(-3, D + 300, (4, N)).astype(np.int32)
+    v[0], v[1] = D - 1, 0
+    flat = torch.from_numpy(v).reshape(-1).to(card)
+    if not aligned:
+        flat = torch.cat([flat[:1], flat])[1:]
+        assert flat.data_ptr() % 16 != 0
+    got = pk_cuda.hist_v1_cuda(flat.view(4, N), D)
+    torch.cuda.synchronize()
+    assert int(got[0, D - 1]) == N and int(got[1, 0]) == N
+    assert torch.equal(got.cpu(), mxu.hist_reference(torch.from_numpy(v), D))
+
+
+def test_pk_hist_wgmma_entry_refuses_bad_plans(card):
+    """D = 1025 has 9 hi rows: (16, 1, 255) and (8, 2, 255) cover them;
+    an illegal or too wide width, a cover that falls short or leaves a
+    tile empty, and a sentinel that is a row or not a byte are refused."""
+    lib = _build.load("pk_variants")
+    v = torch.zeros((2, 64), dtype=torch.int32, device=card)
+    out = torch.empty((2, 1025), dtype=torch.int32, device=card)
+    stream = torch.cuda.current_stream(card).cuda_stream
+
+    def rc(width, tiles, sentinel):
+        return lib.dagcon_hist_wgmma(v.data_ptr(), out.data_ptr(), 2, 64,
+                                     1025, width, tiles, sentinel, stream)
+
+    assert rc(16, 1, 255) == 0 and rc(8, 2, 255) == 0
+    for plan in ((40, 1, 255), (256, 1, 255), (8, 1, 255), (16, 2, 255),
+                 (16, 1, 15), (16, 1, 256)):
+        assert rc(*plan) != 0, plan
+    torch.cuda.synchronize()
 
 
 def test_pk_hist_v1_past_the_shared_memory_limit(card):

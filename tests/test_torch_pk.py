@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from pbdagcon_tpu_torch.ops import pk, pk_cuda
+from pbdagcon_tpu_torch.ops import mxu, pk, pk_cuda
 from pbdagcon_tpu_torch.tools import prof_pk
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -67,6 +67,87 @@ def test_hist_variants_equal_jax_pallas(jpk, variant, seed, B, N, D, nc):
     before = dict(pk_cuda.launches)
     _eq(getattr(pk, variant)(torch.from_numpy(v), D, nc=nc), want)
     assert pk_cuda.launches == before  # a CPU tensor takes the plain version
+
+
+def test_hist_v1_plan_covers_every_hi_row_once():
+    """P1's launch plan for every D up to 245000: a legal s8 wgmma width
+    no wider than the cap, the fewest tiles, tile k holding hi rows
+    [k * width, (k + 1) * width) so that the tiles cover the ceil(D / 128)
+    rows with none empty (every row in exactly one tile), the smallest
+    legal width for that, and a sentinel byte that is no row."""
+    cap = pk_cuda.HIST_V1_MAX_WIDTH
+    widths = pk_cuda.WGMMA_S8_WIDTHS
+    assert widths == (8, 16, 24) + tuple(range(32, 257, 16))
+    assert cap in widths and cap < 255
+    seen = set()
+    for D in range(1, 245001):
+        width, tiles, sentinel = pk_cuda.hist_v1_plan(D)
+        rows = -(-D // 128)
+        assert width in widths and width <= cap
+        assert width <= sentinel <= 255
+        assert tiles == -(-rows // cap)
+        assert (tiles - 1) * width < rows <= tiles * width
+        assert width == min(w for w in widths if w >= -(-rows // tiles))
+        seen.add(width)
+    assert seen == {w for w in widths if w <= cap}
+
+
+def _hist_wgmma_model(v: np.ndarray, D: int) -> np.ndarray:
+    """numpy model of `hist_wgmma_kernel` under `hist_v1_plan(D)`: per
+    (row, hi tile), each value split into a hi byte (hi - hbase where it
+    counts in the tile, else the sentinel) and a lo byte (v & 127); per
+    32-value step, the [128 lo x 32] one-hot times the [32 x width]
+    one-hot, summed in int32; then only the tile's real hi rows below D
+    stored, into an output that starts as garbage (`torch.empty`). The
+    steps past N hold a value that would count (bin 0), kept out by the
+    index test, as in the kernel."""
+    width, tiles, sentinel = pk_cuda.hist_v1_plan(D)
+    B, N = v.shape
+    rows = -(-D // 128)
+    steps = -(-N // 32)
+    vals = np.zeros((B, steps * 32), np.int64)
+    vals[:, :N] = v
+    in_n = np.arange(steps * 32) < N
+    out = np.full((B, D), -12345, np.int32)
+    lo_rows = np.arange(128, dtype=np.uint8)
+    for k in range(tiles):
+        hbase = k * width
+        hcount = min(width, rows - hbase)
+        dh = (vals >> 7) - hbase
+        ok = in_n & (vals >= 0) & (vals < D) & (dh >= 0) & (dh < hcount)
+        hib = np.where(ok, dh, sentinel).astype(np.uint8)
+        lob = (vals & 127).astype(np.uint8)
+        a = (lob.reshape(B, steps, 1, 32) == lo_rows[:, None]).astype(np.int32)
+        b = (hib.reshape(B, steps, 32, 1)
+             == np.arange(width, dtype=np.uint8)).astype(np.int32)
+        acc = np.einsum("bslk,bskn->bln", a, b)  # [B, 128 lo, width hi]
+        d = (hbase + np.arange(width))[None, :] * 128 + np.arange(128)[:, None]
+        keep = (np.arange(width)[None, :] < hcount) & (d < D)
+        out[:, d[keep]] = acc[:, keep]
+    return out
+
+
+# D at P1's padding edges (wgmma widths 8 filled and spilled, one full
+# tile and one bin past it, three tiles) and the microbench's D = 1026;
+# N not a multiple of 4 or 32, and N = 0.
+@pytest.mark.parametrize("D", [
+    1, 128, 129, 1024, 1025, 1026, 9234,
+    pk_cuda.HIST_V1_MAX_WIDTH * 128, pk_cuda.HIST_V1_MAX_WIDTH * 128 + 1,
+    70001,
+])
+@pytest.mark.parametrize("N", [0, 1001])
+def test_hist_wgmma_model_equals_reference(D, N):
+    """Values below 0, in the padded bins [D, 128 * ceil(D / 128)), past
+    them and in every tile; one bin holding a count past int8."""
+    rng = np.random.default_rng(D + N)
+    rows = -(-D // 128)
+    v = rng.integers(-3, 128 * rows + 300, (3, N)).astype(np.int32)
+    v[:, ::13] = -1
+    v[:, 1::29] = D - 1
+    v[:, 2::31] = rng.integers(D, 128 * rows + 1, (3, len(range(2, N, 31))))
+    v[2, : N // 2] = D // 2
+    want = mxu.hist_reference(torch.from_numpy(v), D).numpy()
+    assert np.array_equal(_hist_wgmma_model(v, D), want)
 
 
 def test_hist_v0_equals_jax_pallas(jpk):
