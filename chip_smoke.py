@@ -10,9 +10,12 @@ Phases, in order; any failure exits non-zero before the last line:
    together, sm_90a).
 2. Hold the DP kernel against its plain PyTorch version on the card,
    bitwise (0 ulp): random arena batches over W in {16,32,64,128} x K in
-   {8,32,128} (B not a multiple of 32, long edges, unsup nodes, -1 gaps),
+   {8,32,128} (B not a multiple of 32, long edges, unsup nodes, -1 gaps;
+   V = 700, so the exit/cov/unsup rows miss 16-byte alignment), aligned
+   ones (V = 512), the scan order's edge cases (`ops.dp.edge_batches`),
    then one real batch of the bench workload from the native packer,
-   where both are timed with CUDA events.
+   where both are timed with CUDA events beside the bound, with the rows
+   the kernel scans and its cycles per row.
 3. The native-loader path at full size: the bench workload (512 targets
    x 1000 bp x 30x, seed 1234, raw 'pre' records, -a host aligner)
    through `pipeline.run_stream` with backend "cuda". The FASTA must be
@@ -23,8 +26,10 @@ Phases, in order; any failure exits non-zero before the last line:
    and out-of-range values and ranks, negative and over-wide payloads,
    1/2/4-byte cuts, repeated ranks, domains on both sides of the
    shared-memory limit), then every hist and scatter call of one bench
-   window's device build, captured from the build and timed (kernel and
-   plain, the window's calls replayed from a CUDA graph) with CUDA events.
+   window's device build, captured from the build and timed (kernel,
+   plain and one `scatter_add_` per output as the library yardstick, the
+   window's calls replayed from a CUDA graph) with CUDA events; the
+   window's DP call, captured too, is held bitwise and timed.
 4b. The kernel-variant microbench's kernels P1-P3 (`hist_v1`, `hist_v2`,
    `pallas_scatter`) against their plain versions, integer-equal: random
    cases, the microbench's shapes and every hist/scatter call of the
@@ -39,7 +44,9 @@ Phases, in order; any failure exits non-zero before the last line:
    native engine's, and the launches of hist, scatter and dp_scan over
    the runs each > 0. Prints the host fallbacks by reason, the stages'
    host-clock seconds, b/s, and a traced run's device busy time.
-6. A JSON line of kernels, then the last line:
+6. A JSON line of kernels (each with its launches on the main paths,
+   max_abs_err, ms, plain_ms, bound_ms and library_ms), then the last
+   line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 """
 
@@ -58,6 +65,17 @@ TARGETS, LENGTH, COVERAGE = 512, 1000, 30
 GRID_B, GRID_V = 37, 700
 DEVBUILD_BATCH = 128  # bench.py's batch_targets for the devbuild path
 KERNEL_SOURCES = ("dp_scan", "hist_scatter", "pk_variants")
+# Device-memory rate of an H100 SXM (80 GB HBM3), the `bound_ms` basis.
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound_ms(nbytes: int) -> float:
+    """Least ms to move `nbytes` through device memory."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def log(*a) -> None:
@@ -176,7 +194,9 @@ def main() -> int:
     from pbdagcon_tpu_torch.ops import _build, dp_cuda
     from pbdagcon_tpu_torch.ops.dp import (
         dp_scores_reference,
+        edge_batches,
         random_batch,
+        start_rows,
         to_arena,
         unpack_arena,
     )
@@ -203,21 +223,32 @@ def main() -> int:
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     worst = 0.0
+
+    def hold_dp(batch, what) -> None:
+        nonlocal worst
+        B, V, W = batch["win_count"].shape
+        K = batch["long_u"].shape[1]
+        args = unpack_arena(torch.from_numpy(to_arena(batch)).to(dev),
+                            B, V, W, K)
+        got = dp_cuda.dp_scores_cuda(*args)
+        want = dp_scores_reference(*args)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        worst = max(worst, err)
+        ok = bitwise_equal(got, want)
+        log(f"{what} B={B} V={V} W={W:3d} K={K:3d}: "
+            f"bitwise {'OK' if ok else 'MISMATCH'} max_abs_err={err}")
+        if not ok:
+            raise SystemExit("chip_smoke: kernel != plain version")
+
     for W in (16, 32, 64, 128):
         for K in (8, 32, 128):
-            arena = to_arena(random_batch(rng, GRID_B, GRID_V, W, K))
-            args = unpack_arena(torch.from_numpy(arena).to(dev),
-                                GRID_B, GRID_V, W, K)
-            got = dp_cuda.dp_scores_cuda(*args)
-            want = dp_scores_reference(*args)
-            torch.cuda.synchronize()
-            err = max_abs_err(got, want)
-            worst = max(worst, err)
-            ok = bitwise_equal(got, want)
-            log(f"grid B={GRID_B} V={GRID_V} W={W:3d} K={K:3d}: "
-                f"bitwise {'OK' if ok else 'MISMATCH'} max_abs_err={err}")
-            if not ok:
-                raise SystemExit("chip_smoke: kernel != plain version")
+            hold_dp(random_batch(rng, GRID_B, GRID_V, W, K), "grid")
+    for W, K in ((16, 32), (48, 32)):
+        hold_dp(random_batch(rng, GRID_B, 512, W, K), "aligned rows")
+    for W, K, V in ((16, 32, 301), (48, 8, 129), (128, 128, 203)):
+        for name, batch in edge_batches(rng, GRID_B, V, W, K).items():
+            hold_dp(batch, f"edge case {name}")
 
     # The bench workload (as bench.py makes it).
     t = time.time()
@@ -275,8 +306,22 @@ def main() -> int:
     plain_b = time_ms(lambda: dp_scores_reference(*args), 2)
     kernel_ms = (kernel_a + kernel_b) / 2
     plain_ms = (plain_a + plain_b) / 2
+    # The bound: every input read once and the scores written once.
+    dp_bound = bound_ms(nbytes(*args, got))
+    top = start_rows(args[0], args[1], args[4])
+    scanned = torch.where(top >= 0, (top // 4 + 1) * 4, 0)
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.split()[0])
     log(f"dp_scan at B={B} V={V} W={W} K={K}: kernel {kernel_a} / "
-        f"{kernel_b} ms, plain PyTorch {plain_a} / {plain_b} ms [{card}]")
+        f"{kernel_b} ms, plain PyTorch {plain_a} / {plain_b} ms, bound "
+        f"{dp_bound} ms ({nbytes(*args, got)} bytes) [{card}]")
+    log(f"dp_scan rows scanned: {int(scanned.sum())} of {B * V} (longest "
+        f"target {int(scanned.max())}); {kernel_ms * 1e-3 * clock_mhz * 1e6 / int(scanned.max())} "
+        f"cycles per row of the longest target at the {clock_mhz} MHz max "
+        f"SM clock")
     del args, got, want, batch
 
     # ---- phase 3: the native-loader path at full size ----
@@ -374,9 +419,15 @@ def main() -> int:
         if not ok:
             raise SystemExit("chip_smoke: scatter kernel != plain version")
 
-    # Every hist/scatter call of one bench window's build, captured.
-    calls = {"hist": [], "scatter": []}
+    # Every hist/scatter call and the DP call of one bench window's
+    # build, captured.
+    calls = {"hist": [], "scatter": [], "dp": []}
     real_hist, real_scatter = mxu_cuda.hist_cuda, mxu_cuda.scatter_cuda
+    real_dp = dp_cuda.dp_scores_cuda
+
+    def rec_dp(*args):
+        calls["dp"].append(tuple(a.clone() for a in args))
+        return real_dp(*args)
 
     def rec_hist(values, D):
         calls["hist"].append((values.clone(), D))
@@ -407,13 +458,34 @@ def main() -> int:
     inputs = tuple(x.to(dev) for x in host)
     P = min(caps.V, 2 * caps.L + 64)
     mxu_cuda.hist_cuda, mxu_cuda.scatter_cuda = rec_hist, rec_scatter
+    dp_cuda.dp_scores_cuda = rec_dp
     try:
         devpipe.run_batch(inputs, caps, P, min_weight, packed=True)
     finally:
         mxu_cuda.hist_cuda, mxu_cuda.scatter_cuda = real_hist, real_scatter
+        dp_cuda.dp_scores_cuda = real_dp
     torch.cuda.synchronize()
     log(f"bench window caps: {caps} ({cnt} targets encoded, window of "
         f"{len(idxs)})")
+
+    # The window's DP call: bitwise, then timed in turns.
+    (dp_args,) = calls.pop("dp")
+    got, want = real_dp(*dp_args), dp_scores_reference(*dp_args)
+    torch.cuda.synchronize()
+    worst = max(worst, max_abs_err(got, want))
+    if not bitwise_equal(got, want):
+        raise SystemExit("chip_smoke: kernel != plain version (devbuild call)")
+    dpw_pa = time_ms(lambda: dp_scores_reference(*dp_args), 1)
+    dpw_ka = time_ms(lambda: real_dp(*dp_args), 20)
+    dpw_kb = time_ms(lambda: real_dp(*dp_args), 20)
+    dpw_pb = time_ms(lambda: dp_scores_reference(*dp_args), 1)
+    dpw_bound = bound_ms(nbytes(*dp_args, got))
+    dB, dV, dW = dp_args[0].shape
+    log(f"dp_scan devbuild window call B={dB} V={dV} W={dW} "
+        f"K={dp_args[4].shape[1]}: bitwise OK; kernel {dpw_ka} / {dpw_kb} "
+        f"ms, plain PyTorch {dpw_pa} / {dpw_pb} ms, bound {dpw_bound} ms "
+        f"[{card}]")
+    del dp_args, got, want
 
     def run_hist(plain):
         for values, D in calls["hist"]:
@@ -424,6 +496,40 @@ def main() -> int:
             (mxu.scatter_reference if plain else real_scatter)(
                 ranks, payloads, D, mask)
 
+    # The library yardstick: one `scatter_add_` per output (into a zeroed
+    # [B, D + 1] int32 tensor, the last column taking what is dropped),
+    # with its indices and ones or cut payloads made here, outside the
+    # timed region. The port never calls it.
+    def lib_hist_prep(cs):
+        out = []
+        for values, D in cs:
+            ok = (values >= 0) & (values < D)
+            out.append((torch.where(ok, values, D).long(),
+                        torch.ones_like(values), D))
+        return out
+
+    def lib_scatter_prep(cs):
+        out = []
+        for ranks, payloads, D, mask in cs:
+            ok = (ranks >= 0) & (ranks < D)
+            idx = torch.where(ok, ranks, D).long()
+            for p in payloads:
+                out.append((idx, torch.where(ok, p.long() & mask, 0).int(), D))
+        return out
+
+    def run_lib(prep):
+        for idx, src, D in prep:
+            torch.zeros((idx.shape[0], D + 1), dtype=torch.int32,
+                        device=dev).scatter_add_(1, idx, src)
+
+    def window_bytes(op, cs) -> int:
+        """Each call's inputs read once and outputs written once."""
+        if op == "hist":
+            return sum(nbytes(v) + v.shape[0] * D * 4 for v, D in cs)
+        return sum(nbytes(r, *ps) + len(ps) * r.shape[0] * D * 4
+                   for r, ps, D, _ in cs)
+
+    lib_prep = {"hist": lib_hist_prep, "scatter": lib_scatter_prep}
     timed = {}
     for name, run in (("hist", run_hist), ("scatter", run_scatter)):
         for c in calls[name]:
@@ -436,20 +542,25 @@ def main() -> int:
             if not ok:
                 raise SystemExit(f"chip_smoke: {name} kernel != plain "
                                  f"version on a bench window call")
-        # In turns (plain, kernel, kernel, plain); device ms for all the
-        # window's calls of the kernel, replayed from a CUDA graph (an
-        # eager loop would time the host's launches).
+        # In turns (plain, kernel, library, library, kernel, plain);
+        # device ms for all the window's calls, replayed from a CUDA graph
+        # (an eager loop would time the host's launches).
+        prep = lib_prep[name](calls[name])
         pa = graph_ms(lambda: run(True), 20)
         ka = graph_ms(lambda: run(False), 20)
+        la = graph_ms(lambda: run_lib(prep), 20)
+        lb = graph_ms(lambda: run_lib(prep), 20)
         kb = graph_ms(lambda: run(False), 20)
         pb = graph_ms(lambda: run(True), 20)
-        timed[name] = ((ka + kb) / 2, (pa + pb) / 2)
+        timed[name] = ((ka + kb) / 2, (pa + pb) / 2, (la + lb) / 2,
+                       bound_ms(window_bytes(name, calls[name])))
         shapes = sorted({tuple(c[0].shape) + (c[-1] if name == "hist" else c[2],)
                          for c in calls[name]})
         log(f"{name}: {len(calls[name])} calls per bench window (B, N, D in "
             f"{shapes}), all equal to the plain version; kernel {ka} / {kb} "
-            f"ms, plain PyTorch {pa} / {pb} ms; device ms per window (CUDA "
-            f"graph) [{card}]")
+            f"ms, plain PyTorch {pa} / {pb} ms, library scatter_add_ {la} / "
+            f"{lb} ms, bound {timed[name][3]} ms; device ms per window "
+            f"(CUDA graph) [{card}]")
 
     # ---- phase 4b: the microbench's kernels P1-P3 vs plain versions ----
     from pbdagcon_tpu_torch.ops import pk_cuda
@@ -530,12 +641,17 @@ def main() -> int:
     }
     window_ms = {}
     for op, (cs, fns) in variants.items():
-        ms = {k: [] for k in fns}
-        for k in list(fns) + list(fns)[::-1]:
-            ms[k].append(graph_ms(lambda f=fns[k]: [f(*c) for c in cs], 20))
+        prep = lib_prep[op](cs)
+        runs = {k: (lambda f=f: [f(*c) for c in cs]) for k, f in fns.items()}
+        runs["library"] = lambda: run_lib(prep)
+        ms = {k: [] for k in runs}
+        for k in list(runs) + list(runs)[::-1]:
+            ms[k].append(graph_ms(runs[k], 20))
         window_ms.update({k: sum(v) / 2 for k, v in ms.items()
-                          if k not in ("B2", "B3", "plain")})
-        window_ms[f"{op} plain"] = sum(ms["plain"]) / 2
+                          if k not in ("B2", "B3", "plain", "library")})
+        for k in ("plain", "library"):
+            window_ms[f"{op} {k}"] = sum(ms[k]) / 2
+        window_ms[f"{op} bound"] = bound_ms(window_bytes(op, cs))
         log(f"{op}: {len(cs)} of {len(calls[op])} bench window calls, all "
             f"equal to the plain version; device ms per window (CUDA graph): "
             + ", ".join(f"{k} {v[0]} / {v[1]}" for k, v in ms.items())
@@ -555,7 +671,7 @@ def main() -> int:
         raise SystemExit(f"chip_smoke: the microbench failed (lines of "
                          f"{disagree} disagree; launches {pk_launches})")
     log(f"prof_pk: every shape's lines agree; launches {pk_launches} [{card}]")
-    del calls, inputs, host
+    del calls, inputs, host, prep
 
     # ---- phase 5: the devbuild path at full size ----
     dcfg = DagconConfig(
@@ -609,8 +725,8 @@ def main() -> int:
 
     # ---- phase 6: results ----
     log(card)
-    hist_ms, hist_plain = timed["hist"]
-    sc_ms, sc_plain = timed["scatter"]
+    hist_ms, hist_plain, hist_lib, hist_bound = timed["hist"]
+    sc_ms, sc_plain, sc_lib, sc_bound = timed["scatter"]
     print(json.dumps({"kernels": [{
         "name": "dp_scan",
         "route": "cuda",
@@ -622,6 +738,13 @@ def main() -> int:
         "max_abs_err": worst,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        "bound_ms": dp_bound,
+        "bound_by": "bytes",
+        # No one PyTorch call computes a banded max-plus scan.
+        "library_ms": None,
+        "devbuild_call": {"ms": (dpw_ka + dpw_kb) / 2,
+                          "plain_ms": (dpw_pa + dpw_pb) / 2,
+                          "bound_ms": dpw_bound},
     }, {
         "name": "hist",
         "route": "cuda",
@@ -631,6 +754,9 @@ def main() -> int:
         "max_abs_err": worst_k["hist"],
         "ms": hist_ms,
         "plain_ms": hist_plain,
+        "bound_ms": hist_bound,
+        "bound_by": "bytes",
+        "library_ms": hist_lib,
     }, {
         "name": "scatter",
         "route": "cuda",
@@ -640,6 +766,9 @@ def main() -> int:
         "max_abs_err": worst_k["scatter"],
         "ms": sc_ms,
         "plain_ms": sc_plain,
+        "bound_ms": sc_bound,
+        "bound_by": "bytes",
+        "library_ms": sc_lib,
     }] + [{
         "name": name,
         "route": "cuda",
@@ -649,6 +778,9 @@ def main() -> int:
         "max_abs_err": worst_p[name],
         "ms": window_ms[name],
         "plain_ms": window_ms[f"{op} plain"],
+        "bound_ms": window_ms[f"{op} bound"],
+        "bound_by": "bytes",
+        "library_ms": window_ms[f"{op} library"],
         "prof_pk_ms": {k: v for k, v in prof_ms.items() if tag in k},
     } for name, line, op, tag in (
         ("hist_v1", 58, "hist", "v1 P1"), ("hist_v2", 113, "hist", "v2 P2"),

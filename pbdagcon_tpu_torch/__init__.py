@@ -1,10 +1,13 @@
 """pbdagcon_tpu_torch: the PyTorch + CUDA port of tpu-dagcon.
 
 It sits beside the JAX package `pbdagcon_tpu`, which stays the
-reference. The port imports torch and never jax. Framework-free modules
-of the JAX package are shared by import, not copied: the alignment
-records and parsers, the IO, the graph oracle, the host linearizer, the
-`-a` aligner, the simulator and the native C++ engine's bindings.
+reference. The port imports torch and never jax, and nothing of the JAX
+package either: it keeps its own copies, under the same module names,
+of the framework-free modules it uses (the alignment records and
+parsers, the IO, the graph oracle, the host linearizer, the `-a`
+aligner, the simulator, the self-check, the native C++ engine's
+bindings, the device build's encoder and the devbuild shape ladders).
+The tests hold each copy against its original.
 
 Layer map (slices: the native-loader consensus path, the devbuild path,
 the kernel-variant microbench):
@@ -34,21 +37,23 @@ the kernel-variant microbench):
                 (`python -m pbdagcon_tpu_torch.tools.prof_pk`).
 - `convert`   : config, packed batches and device-build arrays from the
                 JAX package.
+- `alignment`, `io`, `oracle`, `ops.linearize`, `aligner`, `simulate`,
+  `selfcheck`, `ops.devbuild`: the copies of the framework-free modules.
 - `parallel`  : the completed-target journal.
 - `cli`       : `python -m pbdagcon_tpu_torch`.
 """
 
 __version__ = "0.1.0"
 
-from pbdagcon_tpu.alignment import (  # noqa: F401
+from pbdagcon_tpu_torch.alignment import (  # noqa: F401
     Alignment,
     normalize_gaps,
     parse_m5,
     parse_pre,
     trim_aln,
 )
-from pbdagcon_tpu.io import FastaWriter  # noqa: F401
-from pbdagcon_tpu.simulate import (  # noqa: F401
+from pbdagcon_tpu_torch.io import FastaWriter  # noqa: F401
+from pbdagcon_tpu_torch.simulate import (  # noqa: F401
     NoiseProfile,
     simulate_targets,
     to_m5,

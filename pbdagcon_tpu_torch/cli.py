@@ -18,7 +18,7 @@ import resource
 import sys
 import time
 
-from pbdagcon_tpu.io import FastaWriter, open_input
+from pbdagcon_tpu_torch.io import FastaWriter, open_input
 from pbdagcon_tpu_torch.config import DagconConfig
 from pbdagcon_tpu_torch.pipeline import run_stream
 
@@ -140,7 +140,7 @@ def main(argv: list[str] | None = None) -> int:
         journal = TargetJournal(args.journal, before_flush=sys.stdout.flush)
 
     if args.shard or journal is not None:
-        from pbdagcon_tpu.io import filter_groups_text, shard_stream_bytes
+        from pbdagcon_tpu_torch.io import filter_groups_text, shard_stream_bytes
 
         shard_i, shard_n = 0, 1
         if args.shard:
@@ -167,7 +167,7 @@ def main(argv: list[str] | None = None) -> int:
             stream = filter_groups_text(stream, cfg.fmt, keep)
 
     if args.selfcheck:
-        from pbdagcon_tpu.selfcheck import run_selfcheck
+        from pbdagcon_tpu_torch.selfcheck import run_selfcheck
 
         rc = run_selfcheck(stream, cfg)
         if journal is not None:

@@ -9,10 +9,11 @@ fragments from the emitted paths. Targets the fixed-shape build flags
 (capacity overflows, absorption cascades, ambiguous-key ties) take the
 exact host path, so the output is the reference's byte for byte.
 
-The shape ladders, `DevCapsConfig`, `ins_cap`, `chain_stats` and
-`encode_groups` are the JAX package's, shared by import (that module
-imports no jax); `caps_for` and `choose_window_caps` are re-implemented
-here because the JAX ones build the JAX package's `Caps`.
+The shape ladders, `_ladder`, `DevCapsConfig`, `ins_cap`, `chain_stats`
+and `encode_groups` are the port's copy of the JAX package's
+(`pbdagcon_tpu/devpipe.py`), the same code with the imports switched;
+`caps_for` and `choose_window_caps` are re-implemented here because the
+JAX ones build the JAX package's `Caps`.
 
 Left out against the JAX form: the blocked DP at W <= 32 (it returns
 with colshard, ROADMAP A14; the DP kernel gives the same scores), the
@@ -24,6 +25,7 @@ graph length.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import logging
 import os
 import queue
@@ -34,27 +36,11 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
-from pbdagcon_tpu.devpipe import (
-    _B_LADDER,
-    _C_LADDER,
-    _CH_LADDER,
-    _DQ_LADDER,
-    _L_LADDER,
-    _ND_LADDER,
-    _R_LADDER,
-    _SE_LADDER,
-    _SM_LADDER,
-    _W_LADDER,
-    DevCapsConfig,
-    _ladder,
-    chain_stats,
-    encode_groups,
-    ins_cap,
-)
-from pbdagcon_tpu.io import TargetGroup, format_fasta
-from pbdagcon_tpu.oracle.graph import CnsResult
-from pbdagcon_tpu.ops.devbuild import EncodedGroup
 from pbdagcon_tpu_torch import native
+from pbdagcon_tpu_torch.config import DagconConfig
+from pbdagcon_tpu_torch.io import TargetGroup, format_fasta
+from pbdagcon_tpu_torch.oracle.graph import CnsResult
+from pbdagcon_tpu_torch.ops.devbuild import EncodedGroup, encode_group
 from pbdagcon_tpu_torch.ops.devbuild_torch import (
     Caps,
     device_build,
@@ -64,6 +50,160 @@ from pbdagcon_tpu_torch.ops.devemit import assemble_fragments, backtrack_emit
 from pbdagcon_tpu_torch.ops.dp import dp_scores
 
 log = logging.getLogger("pbdagcon_tpu_torch")
+
+# Shape ladders: one compiled program per (B, R, C, L) combination used.
+# Rung spacing is a measured trade: the chain-space passes scale with
+# NC = R_rung * CH_rung, and coarse rungs waste real device time — a
+# 30-read pileup on the 48 rung ran the whole build 24% slower than on
+# a 32 rung (45.6k -> 56.6k b/s end to end), and a CH 192 rung bought
+# another 11% (-> 63k). Finer rungs cost compile shapes; the persistent
+# compilation cache (config.enable_compile_cache) amortizes them.
+_B_LADDER = (8, 32, 64, 128)
+# Finer primary rungs (r3): the bench pileup (1000bp x 30x) needs
+# C=1240/R=30 and paid the 1536/32 rungs' 24% column padding in every
+# R*C-wide sort; mixed streams (soak classes 300-6000bp, 8-60x) paid up
+# to 4x on C and 2x on R. Need-snapping keeps one compiled shape per
+# rung actually hit; the persistent compile cache amortizes new rungs.
+_R_LADDER = (16, 32, 48, 64, 96, 128, 256, 512)
+_C_LADDER = (256, 512, 768, 1280, 1536, 2048, 4096, 8192, 16384)
+_L_LADDER = (256, 512, 1024, 2048, 4096, 8192, 16384)
+
+
+def _ladder(x: int, ladder: tuple[int, ...]) -> int | None:
+    for v in ladder:
+        if x <= v:
+            return v
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class DevCapsConfig:
+    """Derived caps for secondary dimensions, scaled from (R, C, L).
+
+    Two profiles: `compact()` sizes for PacBio-like insertion density
+    (~9%/position) and `heavy()` for gap-heavy pileups (~25%). The
+    pipeline picks per batch from the measured insertion fraction;
+    an under-sized pick only raises the flag/fallback rate — output is
+    exact either way."""
+
+    W: int = 96
+    SM: int = 20
+    SE: int = 16
+    DQ: int = 12
+    K: int = 32
+    nd_per_l: int = 8
+
+    @staticmethod
+    def compact() -> "DevCapsConfig":
+        return DevCapsConfig(W=64, SM=12, SE=10, nd_per_l=4)
+
+    @staticmethod
+    def heavy() -> "DevCapsConfig":
+        return DevCapsConfig()
+
+
+def ins_cap(caps) -> int:
+    """Fixed ins-base stream width for a caps combination. Tied to the
+    trie-node cap: a target's trie can never need more nodes than it
+    has inserted bases, so NI <= ND keeps both caps consistent and the
+    host-side NI pre-filter implies the device node cap holds."""
+    return max(256, caps.ND)
+
+
+# Secondary-dimension ladders: measured per-batch requirements snap up
+# to a rung so one workload compiles O(1) shapes while the hot arrays
+# (which scale with SM * ND and R * CH) stay ~2x tighter than the old
+# worst-case formulas. Undersized picks only flag targets to the exact
+# host path — output is bit-identical either way.
+_SM_LADDER = (8, 10, 12, 14, 20)  # fine rungs: a few sm_need=9..10
+# outlier targets otherwise drag a whole window to 14, fattening every
+# SM-scaled array ~40% and pushing NC*SM past the 16-bit packing gates.
+_W_LADDER = (32, 48, 64, 96, 128)  # band width: adapted per bucket from
+# the build's measured `wneed` (the band is the largest array family;
+# the heavy profile's fixed 96 measured 6% slower than the 48 the bench
+# workload actually needs). Undersized W only flags to the host path.
+_CH_LADDER = (32, 64, 128, 192, 256, 512)
+_ND_LADDER = (768, 1536, 3072, 4608, 6144, 8448, 12288, (1 << 14) - 1)
+_DQ_LADDER = (4, 6, 8, 12)
+_SE_LADDER = (4, 8, 12, 14, 16)  # fine top rungs: the SE slot loop and
+# its [B, SE, V] transport scale linearly with the rung, and bench-like
+# pileups measure se_need 13 — a 14 rung shaves 12% off that block.
+
+
+def chain_stats(
+    ops: np.ndarray, starts: np.ndarray
+) -> tuple[int, int, int, int]:
+    """(max chains per read, max chain length, max interior transition
+    span, max chain starts per anchor) for an encoded ops array [R, C]
+    — the Python-path mirror of the native meta[5:9]."""
+    from pbdagcon_tpu_torch.ops.devbuild import OP_DEL, OP_INS, OP_MATCH
+
+    R, C = ops.shape
+    m = ops == OP_MATCH
+    seg = np.cumsum(m, axis=-1) - m
+    isin = ops == OP_INS
+    consume = m | (ops == OP_DEL)
+    tpos = starts[:, None] - 1 + np.cumsum(consume, axis=-1)
+    nmat = m.sum(-1)
+    # per-read match positions, compacted to the front in column order
+    mp = np.sort(np.where(m, tpos, np.int64(1) << 40), axis=-1)
+    # interior transition spans: gaps between consecutive matches whose
+    # inter-match segment (id j+1) holds no insertion.
+    seg_ins = np.zeros((R, C + 2), dtype=bool)
+    rr, cc = np.nonzero(isin)
+    seg_ins[rr, seg[rr, cc]] = True
+    max_dq = 0
+    if C > 1:
+        gaps = mp[:, 1:] - mp[:, :-1]
+        ok = (
+            (np.arange(1, C)[None, :] < nmat[:, None])
+            & ~seg_ins[:, 1:C]
+        )
+        if ok.any():
+            max_dq = int(gaps[ok].max())
+    if not isin.any():
+        return 0, 0, max_dq, 0
+    key = rr.astype(np.int64) * (C + 1) + seg[rr, cc]
+    uniq, first_idx, counts = np.unique(
+        key, return_index=True, return_counts=True
+    )
+    chains_per_read = np.bincount(rr[first_idx], minlength=R)
+    # chain start anchors: p = previous match position (0 = enter).
+    r_u = (uniq // (C + 1)).astype(np.int64)
+    seg_u = (uniq % (C + 1)).astype(np.int64)
+    p_u = np.where(seg_u == 0, 0, mp[r_u, np.maximum(seg_u - 1, 0)])
+    max_se = int(np.bincount(p_u.astype(np.int64)).max())
+    return (
+        int(chains_per_read.max()), int(counts.max()), max_dq, max_se
+    )
+
+
+def encode_groups(
+    groups: Iterable[TargetGroup], cfg: DagconConfig
+) -> Iterator[tuple[TargetGroup, EncodedGroup | None]]:
+    """Host-side encode (normalize + column streams) per group. Groups
+    that cannot be encoded (raw pairs without -a already skipped by the
+    encoder) yield None and fall back."""
+    for group in groups:
+        alns = group.alns
+        if cfg.align:
+            from pbdagcon_tpu_torch.aligner import align_record
+
+            alns = [
+                align_record(a, cfg.align_scorer, cfg.affine_params)
+                for a in alns
+            ]
+        else:
+            alns = [a for a in alns if len(a.qstr) == len(a.tstr)]
+        try:
+            enc = encode_group(
+                group.backbone, alns, trim=cfg.trim, sid=group.sid
+            )
+        except Exception:
+            yield group, None
+            continue
+        yield group, enc
+
 
 # Why a target took the host path, in the order of the packed reason
 # bits of `run_batch` (the build's `flag_detail`, then the DP's int16
@@ -242,7 +382,7 @@ class _Fetch:
 
 def _host_consensus(group: TargetGroup, cfg) -> list[CnsResult]:
     """Exact host fallback for a flagged target (pure-Python path)."""
-    from pbdagcon_tpu.ops.linearize import host_scores
+    from pbdagcon_tpu_torch.ops.linearize import host_scores
     from pbdagcon_tpu_torch.pipeline import consensus_for_lin, linearize_group
 
     lin = linearize_group(group, cfg)

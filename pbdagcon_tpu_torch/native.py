@@ -1,10 +1,15 @@
-"""The port's side of the native C++ engine.
+"""The port's side of the native C++ engine (`native/libdagcon.so`).
 
-The engine itself (`native/libdagcon.so`) and its ctypes bindings are
-shared with the JAX package by import (`pbdagcon_tpu.native`), except
-the batch packer: `NativeEngine.pack_batch` imports the JAX package's
-`ops.dp`, which imports jax. `pack_batch` here calls the same C entry
-point, `dagcon_pack_batch`, into one arena laid out by the port's
+The engine is the repo's C++ host side: streaming M5/'pre' parse, gap
+normalization, graph build + merge, linearization, float32 DP,
+backtrack, FASTA emission, multithreaded over targets. Build: `make -C
+native` (plain g++); `ensure_built()` attempts it, `available()` says
+whether the library loads.
+
+`NativeEngine`, `available`, `ensure_built` and the ctypes signatures
+are the port's copy of `pbdagcon_tpu/native.py`, cut to the entry
+points the port calls. The batch packer is the port's own: `pack_batch`
+calls `dagcon_pack_batch` into one arena laid out by the port's
 `ops.dp.arena_layout`, optionally in pinned host memory so that a single
 non-blocking copy uploads the whole batch. `enc_fill_packed` does the
 same for the device build's encoded inputs (`dagcon_enc_fill_packed`).
@@ -13,16 +18,352 @@ same for the device build's encoded inputs (`dagcon_enc_fill_packed`).
 from __future__ import annotations
 
 import ctypes
+import os
+import subprocess
 
 import numpy as np
 import torch
 
-from pbdagcon_tpu.native import (  # noqa: F401
-    NativeEngine,
-    available,
-    ensure_built,
-)
 from pbdagcon_tpu_torch.ops.dp import LongEdgeOverflow, arena_layout
+
+_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "native")
+_LIB_PATH = os.path.join(_NATIVE_DIR, "libdagcon.so")
+
+_lib: ctypes.CDLL | None = None
+_load_failed = False
+
+
+def ensure_built(force: bool = False) -> bool:
+    """Build libdagcon.so if missing; True if the library exists after."""
+    if os.path.exists(_LIB_PATH) and not force:
+        return True
+    try:
+        subprocess.run(
+            ["make", "-C", _NATIVE_DIR, "-s"],
+            check=True,
+            capture_output=True,
+            timeout=300,
+        )
+    except Exception:
+        return False
+    return os.path.exists(_LIB_PATH)
+
+
+def _load() -> ctypes.CDLL | None:
+    global _lib, _load_failed
+    if _lib is not None or _load_failed:
+        return _lib
+    if not os.path.exists(_LIB_PATH) and not ensure_built():
+        _load_failed = True
+        return None
+    try:
+        lib = ctypes.CDLL(_LIB_PATH)
+    except OSError:
+        _load_failed = True
+        return None
+    c_char_pp = ctypes.POINTER(ctypes.c_char_p)
+    c_long_p = ctypes.POINTER(ctypes.c_long)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    f32p = ctypes.POINTER(ctypes.c_float)
+
+    lib.dagcon_engine_new.restype = ctypes.c_void_p
+    lib.dagcon_engine_new.argtypes = [ctypes.c_int] * 4
+    lib.dagcon_engine_free.argtypes = [ctypes.c_void_p]
+    lib.dagcon_consensus_text.restype = ctypes.c_int
+    lib.dagcon_consensus_text.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long, ctypes.c_int,
+        ctypes.c_int, c_char_pp, c_long_p,
+    ]
+    lib.dagcon_free.argtypes = [ctypes.c_char_p]
+    lib.dagcon_linearize_text.restype = ctypes.c_int
+    lib.dagcon_linearize_text.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long, ctypes.c_int,
+        ctypes.c_int,
+    ]
+    lib.dagcon_target_meta.restype = ctypes.c_int
+    lib.dagcon_target_meta.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.c_char_p, ctypes.c_int,
+    ]
+    lib.dagcon_target_consensus.restype = ctypes.c_int
+    lib.dagcon_target_consensus.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, f32p, ctypes.c_int, ctypes.c_int,
+        c_char_pp, c_long_p,
+    ]
+    lib.dagcon_target_scores.restype = ctypes.c_int
+    lib.dagcon_target_scores.argtypes = [ctypes.c_void_p, ctypes.c_int, f32p]
+    lib.dagcon_engine_targets.restype = ctypes.c_long
+    lib.dagcon_engine_targets.argtypes = [ctypes.c_void_p]
+    lib.dagcon_long_counts.restype = ctypes.c_int
+    lib.dagcon_long_counts.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, i32p, ctypes.c_int, i32p,
+    ]
+    i16p = ctypes.POINTER(ctypes.c_int16)
+    lib.dagcon_pack_batch.restype = ctypes.c_int
+    lib.dagcon_pack_batch.argtypes = [
+        ctypes.c_void_p, i32p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, i16p, i16p, i16p, u8p, i32p, i32p, f32p,
+    ]
+    lib.dagcon_clear_linears.restype = None
+    lib.dagcon_clear_linears.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.dagcon_engine_status.restype = ctypes.c_int
+    lib.dagcon_engine_status.argtypes = [ctypes.c_void_p, c_long_p, c_long_p]
+    lib.dagcon_encode_text.restype = ctypes.c_int
+    lib.dagcon_encode_text.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long, ctypes.c_int,
+        ctypes.c_int,
+    ]
+    lib.dagcon_enc_meta.restype = ctypes.c_int
+    lib.dagcon_enc_meta.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.c_char_p, ctypes.c_int,
+    ]
+    lib.dagcon_enc_fill_packed.restype = ctypes.c_int
+    lib.dagcon_enc_fill_packed.argtypes = [
+        ctypes.c_void_p, i32p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_long, u8p, i32p, u8p, u8p, i32p,
+    ]
+    lib.dagcon_enc_clear.restype = None
+    lib.dagcon_enc_clear.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.dagcon_enc_consensus.restype = ctypes.c_int
+    lib.dagcon_enc_consensus.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, c_char_pp, c_long_p,
+    ]
+    lib.dagcon_engine_set_align.restype = None
+    lib.dagcon_engine_set_align.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.dagcon_engine_set_scorer.restype = None
+    lib.dagcon_engine_set_scorer.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int,
+    ]
+    _lib = lib
+    return _lib
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+class NativeEngine:
+    """One streaming engine instance (wraps `DagconEngine`)."""
+
+    def __init__(
+        self,
+        min_weight: int = 8,
+        min_length: int = 500,
+        trim: int = 0,
+        threads: int = 4,
+        align: bool = False,
+        scorer: str = "simple",
+        affine_params: tuple[int, int, int, int] = (1, -2, -4, -1),
+    ):
+        lib = _load()
+        if lib is None:
+            raise RuntimeError("native library unavailable (make -C native)")
+        self._lib = lib
+        self._h = lib.dagcon_engine_new(min_weight, min_length, trim, threads)
+        if align:
+            lib.dagcon_engine_set_align(self._h, 1)
+        if scorer == "affine":
+            lib.dagcon_engine_set_scorer(
+                self._h, 1, *(int(x) for x in affine_params)
+            )
+        self.min_weight = min_weight
+        self.min_length = min_length
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.dagcon_engine_free(self._h)
+            self._h = None
+
+    def __del__(self):  # pragma: no cover
+        try:
+            self.close()
+        except Exception:
+            pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    @property
+    def targets_done(self) -> int:
+        """Complete target groups consumed so far (host mode)."""
+        return int(self._lib.dagcon_engine_targets(self._h))
+
+    def status(self) -> tuple[bool, int, int]:
+        """(has_error, dropped_records, dropped_groups) — loud-failure
+        accounting so loader-mode callers surface problems the same way
+        `consensus_text` does."""
+        drec = ctypes.c_long()
+        dgrp = ctypes.c_long()
+        rc = self._lib.dagcon_engine_status(
+            self._h, ctypes.byref(drec), ctypes.byref(dgrp)
+        )
+        return rc != 0, int(drec.value), int(dgrp.value)
+
+    # -------------------------------------------------------- host mode
+    def consensus_text(
+        self, text: bytes, fmt: str = "m5", flush: bool = True
+    ) -> str:
+        """Full native consensus: text chunk in, FASTA out."""
+        out = ctypes.c_char_p()
+        out_len = ctypes.c_long()
+        rc = self._lib.dagcon_consensus_text(
+            self._h, text, len(text), 0 if fmt == "m5" else 1,
+            1 if flush else 0, ctypes.byref(out), ctypes.byref(out_len),
+        )
+        try:
+            res = ctypes.string_at(out, out_len.value).decode()
+        finally:
+            self._lib.dagcon_free(out)
+        if rc != 0:
+            raise ValueError("malformed alignment record in input")
+        return res
+
+    # ------------------------------------------------------ loader mode
+    def linearize_text(
+        self, text: bytes, fmt: str = "m5", flush: bool = True
+    ) -> int:
+        """Parse + build + merge + linearize complete groups; APPENDS to
+        the retained target list and returns the number appended. Use
+        `clear_linears(upto)` to release emitted targets from the front
+        (later indices shift down by `upto`). Raises ValueError on
+        malformed input (same policy as `consensus_text`)."""
+        n = self._lib.dagcon_linearize_text(
+            self._h, text, len(text), 0 if fmt == "m5" else 1,
+            1 if flush else 0,
+        )
+        err, _, _ = self.status()
+        if err:
+            raise ValueError("malformed alignment record in input")
+        return n
+
+    def clear_linears(self, upto: int) -> None:
+        self._lib.dagcon_clear_linears(self._h, upto)
+
+    # ----------------------------------------------- device-build mode
+    def encode_text(
+        self, text: bytes, fmt: str = "m5", flush: bool = True
+    ) -> int:
+        """Parse + normalize + encode complete groups for the device
+        graph build; appends to the retained encoded list and returns
+        the number appended. Raises on malformed input."""
+        n = self._lib.dagcon_encode_text(
+            self._h, text, len(text), 0 if fmt == "m5" else 1,
+            1 if flush else 0,
+        )
+        if n < 0:
+            raise ValueError("malformed alignment record in input")
+        return n
+
+    def enc_metas(self, count: int, offset: int = 0) -> np.ndarray:
+        """[count, 9] int32: R, max columns, backbone len, #ins bases,
+        total columns, max ins-chains/read, max chain length, max
+        interior transition span (DQ need), max chain starts per anchor
+        (SE need)."""
+        out = np.zeros((count, 9), dtype=np.int32)
+        meta = (ctypes.c_int * 9)()
+        for i in range(count):
+            if (
+                self._lib.dagcon_enc_meta(
+                    self._h, offset + i, meta, None, 0
+                )
+                < 0
+            ):
+                raise IndexError(offset + i)
+            out[i] = meta[:]
+        return out
+
+    def enc_sid(self, idx: int) -> str:
+        sid_buf = ctypes.create_string_buffer(4096)
+        meta = (ctypes.c_int * 9)()
+        if self._lib.dagcon_enc_meta(self._h, idx, meta, sid_buf, 4096) < 0:
+            raise IndexError(idx)
+        return sid_buf.value.decode()
+
+    def enc_clear(self, upto: int) -> None:
+        self._lib.dagcon_enc_clear(self._h, upto)
+
+    def enc_consensus(self, idx: int) -> str:
+        """Exact host consensus for one encoded target (fallback)."""
+        out = ctypes.c_char_p()
+        out_len = ctypes.c_long()
+        rc = self._lib.dagcon_enc_consensus(
+            self._h, idx, ctypes.byref(out), ctypes.byref(out_len)
+        )
+        if rc != 0:
+            raise IndexError(idx)
+        try:
+            return ctypes.string_at(out, out_len.value).decode()
+        finally:
+            self._lib.dagcon_free(out)
+
+    def target_scores(self, idx: int, n: int) -> np.ndarray:
+        """Native float32 DP for target idx; returns scores[n+1]."""
+        s = np.zeros(n + 1, dtype=np.float32)
+        rc = self._lib.dagcon_target_scores(
+            self._h, idx, s.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+        )
+        if rc != 0:
+            raise IndexError(idx)
+        return s
+
+    def target_consensus(self, idx: int, scores: np.ndarray) -> str:
+        """Native backtrack + FASTA emission given scores[n+1]."""
+        s = np.ascontiguousarray(scores, dtype=np.float32)
+        out = ctypes.c_char_p()
+        out_len = ctypes.c_long()
+        rc = self._lib.dagcon_target_consensus(
+            self._h, idx, s.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            self.min_weight, self.min_length,
+            ctypes.byref(out), ctypes.byref(out_len),
+        )
+        if rc != 0:
+            raise IndexError(idx)
+        try:
+            return ctypes.string_at(out, out_len.value).decode()
+        finally:
+            self._lib.dagcon_free(out)
+
+    def metas(self, count: int, offset: int = 0) -> np.ndarray:
+        """[count, 5] int32: n, span, n_edges, n_enter, backbone_len for
+        retained targets offset..offset+count-1."""
+        out = np.zeros((count, 5), dtype=np.int32)
+        meta = (ctypes.c_int * 5)()
+        for i in range(count):
+            if (
+                self._lib.dagcon_target_meta(
+                    self._h, offset + i, meta, None, 0
+                )
+                < 0
+            ):
+                raise IndexError(offset + i)
+            out[i] = meta[:]
+        return out
+
+    def target_sid(self, idx: int) -> str:
+        sid_buf = ctypes.create_string_buffer(4096)
+        meta = (ctypes.c_int * 5)()
+        if self._lib.dagcon_target_meta(self._h, idx, meta, sid_buf, 4096) < 0:
+            raise IndexError(idx)
+        return sid_buf.value.decode()
+
+    def long_counts(self, idx: int, ws: tuple[int, ...]) -> np.ndarray:
+        """#interior edges with span > W for each W in `ws`."""
+        wa = np.asarray(ws, dtype=np.int32)
+        out = np.zeros(len(ws), dtype=np.int32)
+        rc = self._lib.dagcon_long_counts(
+            self._h, idx,
+            wa.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), len(ws),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        )
+        if rc != 0:
+            raise IndexError(idx)
+        return out
 
 
 def pack_batch(

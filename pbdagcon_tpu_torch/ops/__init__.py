@@ -4,6 +4,6 @@ device graph build (`devbuild_torch.py`), the device backtrack
 kernel-variant microbench's histograms and scatter (`pk.py`), the
 hand-written CUDA kernels (`csrc/dp_scan.cu` via `dp_cuda.py`,
 `csrc/hist_scatter.cu` via `mxu_cuda.py`, `csrc/pk_variants.cu` via
-`pk_cuda.py`) and the nvcc build and loader (`_build.py`). The host linearizer and the NumPy build oracle are shared
-with the JAX package (`pbdagcon_tpu.ops.linearize`,
-`pbdagcon_tpu.ops.devbuild`)."""
+`pk_cuda.py`), the nvcc build and loader (`_build.py`), and the port's
+copies of the host linearizer (`linearize.py`) and of the device
+build's encoder and constants (`devbuild.py`)."""

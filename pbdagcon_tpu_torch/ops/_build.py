@@ -56,22 +56,24 @@ def _nvcc() -> str:
     )
 
 
-def build(name: str) -> str:
+def build(name: str, defines: tuple[str, ...] = ()) -> str:
     """Compile `csrc/<name>.cu` if its library is missing; return the
-    library's path."""
+    library's path. `defines` ("NAME=VALUE") are passed to nvcc as -D
+    (the DP's ablation builds, `tools/dp_ablate.py`)."""
     src = os.path.join(SRC_DIR, f"{name}.cu")
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     with open(src, "rb") as f:
         digest = hashlib.sha1(
-            f.read() + " ".join(NVCC_FLAGS).encode()
+            f.read() + " ".join(flags).encode()
         ).hexdigest()[:16]
     path = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+    cmd = [_nvcc(), *flags, "-o", tmp, src]
     res = subprocess.run(cmd, capture_output=True, text=True)
-    build_logs[name] = res.stderr
+    build_logs[" ".join((name, *defines))] = res.stderr
     if res.returncode != 0:
         raise RuntimeError(
             f"nvcc failed to build {src} (exit {res.returncode}):\n"
@@ -81,14 +83,15 @@ def build(name: str) -> str:
     return path
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Build (if needed) and load `csrc/<name>.cu`; cached per process."""
+    key = " ".join((name, *defines))
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            lib = ctypes.CDLL(build(name))
+            lib = ctypes.CDLL(build(name, defines))
             _bind(name, lib)
-            _libs[name] = lib
+            _libs[key] = lib
         return lib
 
 

@@ -44,7 +44,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from pbdagcon_tpu.ops.devbuild import (
+from pbdagcon_tpu_torch.ops.devbuild import (
+    KEY_UNCERTAIN,
     MAX_ABSORB_ROUNDS,
     OP_DEL,
     OP_INS,
@@ -60,7 +61,6 @@ from pbdagcon_tpu_torch.ops.mxu import (
 
 I32 = torch.int32
 I64 = torch.int64
-KEY_UNCERTAIN = 1 << 30
 _F32_MIN = float(np.finfo(np.float32).min)
 
 

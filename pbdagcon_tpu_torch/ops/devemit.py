@@ -24,8 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pbdagcon_tpu.ops.devbuild import KEY_MASK, KEY_UNCERTAIN
-from pbdagcon_tpu.oracle.graph import CnsResult
+from pbdagcon_tpu_torch.ops.devbuild import KEY_MASK, KEY_UNCERTAIN
+from pbdagcon_tpu_torch.oracle.graph import CnsResult
 
 I32 = torch.int32
 NEG_INF = float(np.finfo(np.float32).min)

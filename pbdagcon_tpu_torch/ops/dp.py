@@ -26,8 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pbdagcon_tpu.ops.linearize import LinearGraph
 from pbdagcon_tpu_torch.convert import batch_to_torch
+from pbdagcon_tpu_torch.ops.linearize import LinearGraph, edge_escores
 
 NEG_INF = float("-inf")
 _PENALTY = -10.0
@@ -86,8 +86,6 @@ def pad_batch(
     target has more than K long edges or counts beyond int16, and
     `ValueError` if n > V.
     """
-    from pbdagcon_tpu.ops.linearize import edge_escores
-
     B = len(lins)
     win = np.full((B, V, W), -1, dtype=np.int16)
     exit_c = np.full((B, V), -1, dtype=np.int16)
@@ -178,6 +176,74 @@ def random_batch(rng, B: int, V: int, W: int, K: int) -> dict:
         "win_count": win, "exit_count": exit_c, "cov": cov,
         "unsup": unsup, "long_u": lu, "long_w": lw, "long_esc": lesc,
     }
+
+
+def edge_batches(rng, B: int, V: int, W: int, K: int) -> dict[str, dict]:
+    """Named DP batches (the `random_batch` layout) at the edges of the
+    kernel's scan order: targets whose last candidate lies far below V
+    or on row V-1, targets whose only candidates below the top are long
+    edges, long edges of span exactly W + 1 and short registers (lw <=
+    lu + 8, which no packer makes), unsup on every node (so every d = 0
+    term is the penalty), all-empty targets, and equal counts
+    everywhere (ties between near and far terms)."""
+    out = {}
+    b = random_batch(rng, B, V, W, K)
+    n = rng.integers(1, max(2, V // 8), size=B)
+    for t in range(B):
+        b["win_count"][t, n[t]:] = -1
+        b["exit_count"][t, n[t]:] = -1
+        keep = (b["long_u"][t] < n[t]) & (b["long_w"][t] < n[t])
+        b["long_u"][t, ~keep] = -1
+        b["long_w"][t, ~keep] = -1
+        b["long_esc"][t, ~keep] = -np.inf
+    out["far_below"] = b
+    b = random_batch(rng, B, V, W, K)
+    b["win_count"][:, -1, :] = rng.integers(0, 9, size=(B, W))
+    b["exit_count"][:, -1] = 3
+    out["last_row"] = b
+    b = random_batch(rng, B, V, W, K)
+    b["win_count"][:] = -1
+    b["exit_count"][:] = -1
+    b["exit_count"][:, V - 1] = 7
+    if K and V > W + 1:
+        u = rng.integers(0, V - W - 1, size=(B, K))
+        b["long_u"][:] = u
+        b["long_w"][:] = np.minimum(u + W + 1 + rng.integers(0, 4, (B, K)), V - 1)
+        b["long_esc"][:] = rng.integers(-20, 20, size=(B, K)) / 2.0
+    out["long_only"] = b
+    b = random_batch(rng, B, V, W, K)
+    if K and V > W + 1:
+        u = rng.integers(0, V - W - 1, size=(B, K))
+        b["long_u"][:] = u
+        b["long_w"][:] = u + W + 1
+        b["long_esc"][:] = rng.integers(-20, 20, size=(B, K)) / 2.0
+    out["span_w_plus_1"] = b
+    b = random_batch(rng, B, V, W, K)
+    if K and V > 9:
+        u = rng.integers(0, V - 9, size=(B, K))
+        b["long_u"][:] = u
+        b["long_w"][:] = u + rng.integers(-2, 10, size=(B, K))
+        b["long_esc"][:] = rng.integers(-20, 20, size=(B, K)) / 2.0
+    out["short_registers"] = b
+    b = random_batch(rng, B, V, W, K)
+    b["unsup"][:] = True
+    out["unsup_all"] = b
+    b = random_batch(rng, B, V, W, K)
+    b["win_count"][:] = -1
+    b["exit_count"][:] = -1
+    b["long_u"][:] = -1
+    b["long_w"][:] = -1
+    b["long_esc"][:] = -np.inf
+    b["win_count"][B // 2, V // 3, :] = 4  # one target with candidates
+    out["empty"] = b
+    b = random_batch(rng, B, V, W, K)
+    b["win_count"][:] = np.where(b["win_count"] >= 0, 5, -1)
+    b["exit_count"][:] = np.where(b["exit_count"] >= 0, 5, -1)
+    b["cov"][:] = 0
+    b["unsup"][:] = False
+    b["long_esc"][:] = np.where(b["long_u"] >= 0, 5.0, -np.inf)
+    out["ties"] = b
+    return out
 
 
 def arena_layout(B: int, V: int, W: int, K: int) -> dict:
@@ -294,6 +360,129 @@ def dp_scores_reference(
                 s, torch.amax(torch.where(long_u == i, pend, neg), dim=1)
             )
             pend = torch.where(long_w == i, long_esc + s[:, None], pend)
+        score[:, i] = s
+    return score[:, :V].contiguous()
+
+
+def start_rows(
+    win_count: torch.Tensor,
+    exit_count: torch.Tensor,
+    long_u: torch.Tensor,
+) -> torch.Tensor:
+    """[B] int64: each target's last row with a candidate (a band slot
+    >= 0, an exit >= 0, or a long edge leaving it), -1 if it has none.
+    Every row above it scores -inf. `csrc/dp_scan.cu` finds it with a
+    backward sweep over the band and exit before its scan."""
+    B, V, _ = win_count.shape
+    rows = torch.arange(V, device=win_count.device)
+    has = (win_count >= 0).any(dim=2) | (exit_count >= 0)
+    top = torch.where(has, rows, -1).amax(dim=1) if V else rows.new_full((B,), -1)
+    lu = long_u.to(torch.int64)
+    lu = torch.where((lu >= 0) & (lu < V), lu, -1)
+    if lu.shape[1]:
+        top = torch.maximum(top, lu.amax(dim=1))
+    return top
+
+
+def kernel_d0(W: int) -> int:
+    """The near/far split that `csrc/dp_scan.cu` runs at band width W:
+    every band term near at W = 16 (the bench batch's band), else the
+    first 8."""
+    return 16 if W == 16 else 8
+
+
+def dp_scores_split_model(
+    win_count: torch.Tensor,
+    exit_count: torch.Tensor,
+    cov: torch.Tensor,
+    unsup: torch.Tensor,
+    long_u: torch.Tensor,
+    long_w: torch.Tensor,
+    long_esc: torch.Tensor,
+    d0: int = 4,
+) -> torch.Tensor:
+    """Plain PyTorch model of the order in which `csrc/dp_scan.cu`
+    computes the scores (CPU, for the tests): bitwise the same function
+    as `dp_scores_reference`, regrouped.
+
+    - Each target starts at `start_rows`, rounded up to a group of `d0`
+      rows (rows at or past V read as empty); rows above score -inf.
+    - s[i] = max(near(i), far(i)). near(i) holds the band terms d < d0,
+      from a window of the last d0 scores; only d = 0 waits on s[i+1].
+    - far(i) holds the exit, the band terms d >= d0 and the long edges
+      leaving i. It is computed d0 rows early, at row i + d0, from the
+      scores and latches of that moment. (The kernel, at `kernel_d0(W)`
+      >= 8, computes it a group of 4 rows early, so that its warp
+      reduction has a group to land; the latches it sees beyond the
+      model's are short registers', whose terms near holds too.)
+    - A "short" long edge (lu < lw <= lu + d0) is not latched in time
+      for that, so its esc joins band term d = lw - lu - 1 of near(lu)
+      instead: max(a + s, b + s) == max(a, b) + s in round-to-nearest.
+    """
+    B, V, W = win_count.shape
+    dev = win_count.device
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
+    pen = torch.full((), _PENALTY, dtype=torch.float32, device=dev)
+    if not 1 <= d0 <= W:
+        raise ValueError(f"d0={d0} must be in [1, W={W}]")
+    top = start_rows(win_count, exit_count, long_u)
+    # rows 0 .. Vp-1 with Vp a multiple of d0; rows >= V are empty.
+    Vp = -(-max(V, 1) // d0) * d0
+    wc = torch.full((B, Vp, W), -1, dtype=torch.int32, device=dev)
+    wc[:, :V] = win_count.to(torch.int32)
+    ex = torch.full((B, Vp), NEG_INF, dtype=torch.float32, device=dev)
+    ex[:, :V] = torch.where(exit_count >= 0, exit_count.to(torch.float32), neg)
+    covf = torch.zeros((B, Vp + W), dtype=torch.float32, device=dev)
+    covf[:, :V] = cov.to(torch.float32)
+    uns = torch.zeros((B, Vp + W), dtype=torch.bool, device=dev)
+    uns[:, :V] = unsup.to(torch.bool)
+    # esc of every band slot, -inf where there is no edge
+    idx = (torch.arange(Vp, device=dev)[:, None] + 1
+           + torch.arange(W, device=dev)[None, :])
+    h = covf[:, idx]
+    esc = torch.where(
+        wc >= 0, torch.where(uns[:, idx], pen, wc.to(torch.float32) - 0.5 * h),
+        neg,
+    )
+    lu = long_u.to(torch.int64)
+    lw = long_w.to(torch.int64)
+    K = lu.shape[1]
+    short = (lu >= 0) & (lu < V) & (lw > lu) & (lw <= lu + d0)
+    for b, k in short.nonzero().tolist():
+        u, d = int(lu[b, k]), int(lw[b, k] - lu[b, k] - 1)
+        esc[b, u, d] = torch.maximum(esc[b, u, d], long_esc[b, k])
+    # first processed row: the start row rounded up to a group end
+    first = torch.where(top >= 0, (top // d0 + 1) * d0 - 1, -1)
+    score = torch.full((B, Vp + W), NEG_INF, dtype=torch.float32, device=dev)
+    pend = torch.full((B, K), NEG_INF, dtype=torch.float32, device=dev)
+    far = {}
+
+    def far_of(k: int) -> torch.Tensor:
+        """far(k) from the scores and latches as they are now."""
+        f = ex[:, k]
+        if W > d0:
+            f = torch.maximum(
+                f, torch.amax(esc[:, k, d0:] + score[:, k + 1 + d0: k + 1 + W], 1)
+            )
+        if K:
+            f = torch.maximum(f, torch.amax(torch.where(lu == k, pend, neg), 1))
+        return f
+
+    for i in range(Vp - 1, -1, -1):
+        active = i <= first
+        # the far terms of the rows d0 below start now; a group's top
+        # rows (at a target's first row) start theirs at the group start
+        if i + d0 >= Vp:
+            far[i] = far_of(i)
+        if i - d0 >= 0:
+            far[i - d0] = far_of(i - d0)
+        m = far.pop(i)
+        for d in range(d0 - 1, 0, -1):
+            m = torch.maximum(m, esc[:, i, d] + score[:, i + 1 + d])
+        s = torch.maximum(m, esc[:, i, 0] + score[:, i + 1])
+        s = torch.where(active, s, neg)
+        if K:
+            pend = torch.where(lw == i, long_esc + s[:, None], pend)
         score[:, i] = s
     return score[:, :V].contiguous()
 

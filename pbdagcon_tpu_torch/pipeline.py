@@ -33,9 +33,9 @@ from typing import Iterable, Iterator, TextIO
 import numpy as np
 import torch
 
-from pbdagcon_tpu.io import FastaWriter, TargetGroup, read_groups
-from pbdagcon_tpu.oracle.graph import CnsResult
-from pbdagcon_tpu.ops.linearize import (
+from pbdagcon_tpu_torch.io import FastaWriter, TargetGroup, read_groups
+from pbdagcon_tpu_torch.oracle.graph import CnsResult
+from pbdagcon_tpu_torch.ops.linearize import (
     LinearGraph,
     backtrack,
     consensus_from_path,
@@ -130,7 +130,7 @@ def linearize_group(
     """Normalize/trim, build + merge the graph, linearize (host side)."""
     alns = group.alns
     if cfg.align:
-        from pbdagcon_tpu.aligner import align_record
+        from pbdagcon_tpu_torch.aligner import align_record
 
         alns = [
             align_record(a, cfg.align_scorer, cfg.affine_params)

@@ -16,14 +16,14 @@ import numpy as np
 import pytest
 import torch
 
-from pbdagcon_tpu.io import FastaWriter
-from pbdagcon_tpu.simulate import NoiseProfile, simulate_targets, to_m5
 from pbdagcon_tpu_torch import native
 from pbdagcon_tpu_torch.config import DagconConfig
 from pbdagcon_tpu_torch.convert import batch_to_torch
+from pbdagcon_tpu_torch.io import FastaWriter
 from pbdagcon_tpu_torch.ops import dp as tdp
 from pbdagcon_tpu_torch.ops import _build, dp_cuda, mxu, mxu_cuda, pk, pk_cuda
 from pbdagcon_tpu_torch.pipeline import run_stream
+from pbdagcon_tpu_torch.simulate import NoiseProfile, simulate_targets, to_m5
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 
@@ -81,6 +81,50 @@ def test_dp_kernel_rejects_what_it_does_not_take(card):
         dp_cuda.dp_scores_cuda(args[0][:, :, :12].contiguous(), *args[1:])
     with pytest.raises(ValueError):
         dp_cuda.dp_scores_cuda(args[0].transpose(0, 1), *args[1:])
+
+
+@pytest.mark.parametrize("W,K,V", [(16, 32, 90), (48, 8, 77), (8, 128, 61),
+                                   (128, 0, 150), (24, 64, 700)])
+@pytest.mark.parametrize("name", [
+    "far_below", "last_row", "long_only", "span_w_plus_1", "short_registers",
+    "unsup_all", "empty", "ties",
+])
+def test_dp_kernel_edge_cases(card, name, W, K, V):
+    """The kernel's scan order at its edges (`tdp.edge_batches`): start
+    rows far below V or on row V-1, long-edge-only targets, span W + 1,
+    short registers, unsup everywhere, empty targets, ties."""
+    rng = np.random.default_rng(W * 1000 + K + V)
+    t = batch_to_torch(tdp.edge_batches(rng, 37, V, W, K)[name], card)
+    args = [t[k] for k in tdp.DP_ARGS]
+    got = dp_cuda.dp_scores_cuda(*args)
+    want = tdp.dp_scores_reference(*args)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize("V", [700, 701, 512, 768])
+@pytest.mark.parametrize("W,K", [(16, 32), (48, 32), (128, 128)])
+def test_dp_kernel_staging_alignment(card, V, W, K):
+    """Rows of exit, cov and unsup that are 16-byte aligned (V % 256 ==
+    0) and not (V = 700, 701), in one arena as the packer lays it out
+    and as tensors at odd offsets: the bulk copies and the lanes' head
+    and tail copies."""
+    rng = np.random.default_rng(V + W + K)
+    B = 33
+    arena = tdp.to_arena(tdp.random_batch(rng, B, V, W, K))
+    args = tdp.unpack_arena(torch.from_numpy(arena).to(card), B, V, W, K)
+    want = tdp.dp_scores_reference(*args)
+    assert _same_bits(dp_cuda.dp_scores_cuda(*args), want)
+    shifted = []
+    for i, a in enumerate(args):
+        if 1 <= i <= 3:  # exit, cov, unsup at an offset of one element
+            buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=card)
+            buf[1:].copy_(a.reshape(-1))
+            a = buf[1:].view(a.shape)
+        shifted.append(a)
+    got = dp_cuda.dp_scores_cuda(*shifted)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want)
 
 
 @pytest.mark.parametrize("use_native", [True, False])
@@ -365,7 +409,7 @@ def test_devbuild_on_card_matches_host(card, use_native):
 def test_device_build_on_card_equals_cpu(card):
     """Every output array of the device build, built on the card (the
     kernels, CUDA sorts and gathers) and on the CPU (plain versions)."""
-    from pbdagcon_tpu.ops.devbuild import encode_group
+    from pbdagcon_tpu_torch.ops.devbuild import encode_group
     from pbdagcon_tpu_torch.devpipe import _pack_batch
     from pbdagcon_tpu_torch.ops.devbuild_torch import Caps, device_build
 

@@ -1,6 +1,6 @@
-"""The port imports without jax, builds nothing at import, and refuses
-what it does not run. The jax-free import runs in a subprocess because
-tests/conftest.py imports jax into this process."""
+"""The port imports without jax and without the JAX package, builds
+nothing at import, and refuses what it does not run. The imports run in
+a subprocess because tests/conftest.py imports jax into this process."""
 
 import os
 import re
@@ -36,32 +36,84 @@ print(" ".join(names))
 """
 
 
-def test_imports_without_jax():
+# Any `import pbdagcon_tpu...` now raises ImportError.
+_NO_JAX_PACKAGE = r"""
+import sys
+sys.modules["pbdagcon_tpu"] = None
+"""
+_ASSERT_NO_JAX_PACKAGE = r"""
+loaded = sorted(k for k in sys.modules if sys.modules[k] is not None and (
+    k == "pbdagcon_tpu" or k.startswith("pbdagcon_tpu.")))
+assert not loaded, loaded
+"""
+_PORT_MODULES = (
+    "cli", "config", "convert", "native", "pipeline", "devpipe",
+    "ops.dp", "ops.dp_cuda", "ops._build", "ops.mxu", "ops.mxu_cuda",
+    "ops.devbuild_torch", "ops.devemit", "ops.pk", "ops.pk_cuda",
+    "tools.prof_pk", "tools.dp_ablate", "parallel.journal",
+    # the copies of the JAX package's framework-free modules
+    "alignment", "io", "oracle", "oracle.graph", "ops.linearize", "aligner",
+    "simulate", "selfcheck", "ops.devbuild",
+)
+
+
+def _import_all(prelude: str = "", epilogue: str = "") -> set[str]:
     res = subprocess.run(
-        [sys.executable, "-c", _IMPORT_ALL],
+        [sys.executable, "-c", prelude + _IMPORT_ALL + epilogue],
         capture_output=True, text=True, timeout=120, cwd=ROOT,
         env=dict(os.environ, PYTHONPATH=ROOT),
     )
     assert res.returncode == 0, res.stderr[-3000:]
     names = set(res.stdout.split())
-    for mod in ("cli", "config", "convert", "native", "pipeline", "devpipe",
-                "ops.dp", "ops.dp_cuda", "ops._build", "ops.mxu",
-                "ops.mxu_cuda", "ops.devbuild_torch", "ops.devemit",
-                "ops.pk", "ops.pk_cuda", "tools.prof_pk", "parallel.journal"):
+    for mod in _PORT_MODULES:
         assert f"pbdagcon_tpu_torch.{mod}" in names
+    return names
 
 
-def test_no_jax_import_in_port_sources():
-    pat = re.compile(r"^\s*(import jax|from jax)", re.M)
+def test_imports_without_jax():
+    _import_all()
+
+
+def test_imports_without_jax_package():
+    _import_all(_NO_JAX_PACKAGE, _ASSERT_NO_JAX_PACKAGE)
+
+
+def _sources() -> list[str]:
     files = [os.path.join(ROOT, "chip_smoke.py")] + [
         os.path.join(d, f)
         for d, _, fs in os.walk(PKG)
         for f in fs if f.endswith(".py")
     ]
     assert len(files) > 10
-    for path in files:
+    return files
+
+
+def _grep(pattern: str) -> list[str]:
+    pat = re.compile(pattern, re.M)
+    hits = []
+    for path in _sources():
         with open(path) as f:
-            assert not pat.search(f.read()), path
+            hits += [path] if pat.search(f.read()) else []
+    return hits
+
+
+# The reference may be named in comments and strings, never imported.
+_JAX_PACKAGE_IMPORT = r"^\s*(from|import)\s+pbdagcon_tpu(\.|\s|$)"
+
+
+def test_no_jax_import_in_port_sources():
+    assert _grep(r"^\s*(import jax|from jax)") == []
+
+
+def test_no_jax_package_import_in_port_sources():
+    pat = re.compile(_JAX_PACKAGE_IMPORT, re.M)
+    for line in ("from pbdagcon_tpu.io import x", "  import pbdagcon_tpu",
+                 "import pbdagcon_tpu as p", "from pbdagcon_tpu import io"):
+        assert pat.search(line), line
+    for line in ("from pbdagcon_tpu_torch.io import x",
+                 "# from `pbdagcon_tpu.io`"):
+        assert not pat.search(line), line
+    assert _grep(_JAX_PACKAGE_IMPORT) == []
 
 
 @pytest.mark.parametrize("backend", ["xla", "blocked", "pallas", "hybrid"])
@@ -113,3 +165,24 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     for name in ("dp_scan", "hist_scatter", "pk_variants"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build.load(name)
+
+
+def test_ablation_builds_and_tool_need_nvcc_and_a_card(monkeypatch, tmp_path):
+    """`tools/dp_ablate.py` builds `dp_scan` with -D DP_ABLATE=... (and
+    DP_W16_D0=8), each build its own library; without a card the tool
+    exits 2."""
+    from pbdagcon_tpu_torch.ops import _build
+    from pbdagcon_tpu_torch.tools import dp_ablate
+
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("nvcc is installed")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("dp_scan", ("DP_ABLATE=1",))
+    assert not _build._libs
+    assert set(dp_ablate.BUILDS) >= {
+        *(f"DP_ABLATE={k}" for k in (0, 1, 2, 4, 8)), "DP_W16_D0=8"}
+    assert dp_ablate.main([]) == 2

@@ -23,14 +23,29 @@ from pbdagcon_tpu_torch.pipeline import _choose_layout_native
 DATA = os.path.join(os.path.dirname(__file__), "data")
 
 
+def _engine(mod):
+    e = mod.NativeEngine(min_weight=6, min_length=100, threads=2)
+    with open(os.path.join(DATA, "golden1.m5"), "rb") as f:
+        count = e.linearize_text(f.read(), fmt="m5")
+    assert count == 4
+    return e
+
+
 @pytest.fixture
 def eng():
+    if not native.available():
+        pytest.skip("native library not built")
+    with _engine(native) as e:
+        yield e
+
+
+@pytest.fixture
+def jeng():
+    """The JAX package's engine on the same input: its `pack_batch` is
+    the reference the port's packer is held against."""
     if not jnative.available():
         pytest.skip("native library not built")
-    with native.NativeEngine(min_weight=6, min_length=100, threads=2) as e:
-        with open(os.path.join(DATA, "golden1.m5"), "rb") as f:
-            count = e.linearize_text(f.read(), fmt="m5")
-        assert count == 4
+    with _engine(jnative) as e:
         yield e
 
 
@@ -39,13 +54,13 @@ def _v(eng) -> int:
 
 
 @pytest.mark.parametrize("b_pad", [None, 7])
-def test_pack_batch_arena_bytes_match_native(eng, b_pad):
+def test_pack_batch_arena_bytes_match_native(eng, jeng, b_pad):
     idxs = [0, 1, 2, 3]
     W, K, outliers = _choose_layout_native(eng, idxs, DagconConfig())
-    assert (W, K, outliers) == jax_layout(eng, idxs, JaxConfig())
+    assert (W, K, outliers) == jax_layout(jeng, idxs, JaxConfig())
     V = _v(eng)
     got = native.pack_batch(eng, idxs, V, W, K, b_pad=b_pad)
-    want = eng.pack_batch(idxs, V, W, K, b_pad=b_pad)
+    want = jeng.pack_batch(idxs, V, W, K, b_pad=b_pad)
     assert got["_dims"] == want["_dims"]
     assert got["_arena"].dtype == torch.uint8
     assert got["_arena"].numpy().tobytes() == want["_arena"].tobytes()
@@ -53,19 +68,19 @@ def test_pack_batch_arena_bytes_match_native(eng, b_pad):
         np.testing.assert_array_equal(got[k], want[k])
 
 
-def test_pack_batch_subset_and_order(eng):
+def test_pack_batch_subset_and_order(eng, jeng):
     V = _v(eng)
     got = native.pack_batch(eng, [3, 1], V, 32, 8)
-    want = eng.pack_batch([3, 1], V, 32, 8)
+    want = jeng.pack_batch([3, 1], V, 32, 8)
     assert got["_arena"].numpy().tobytes() == want["_arena"].tobytes()
 
 
 @pytest.mark.parametrize("W,K", [(16, 0), (16, 1), (16, 2), (32, 0)])
-def test_pack_batch_overflow_on_same_targets(eng, W, K):
+def test_pack_batch_overflow_on_same_targets(eng, jeng, W, K):
     V = _v(eng)
     for i in range(4):
         try:
-            eng.pack_batch([i], V, W, K)
+            jeng.pack_batch([i], V, W, K)
             jax_raised = False
         except JaxOverflow:
             jax_raised = True
