@@ -22,13 +22,22 @@ Phases, in order; any failure exits non-zero before the last line:
    byte-equal to the single-thread native engine's, and the DP kernel's
    launch count over the run must be > 0.
 4. Hold the histogram and scatter kernels against their plain versions
-   on the card, integer-equal: random cases (B not a multiple of 8, -1
-   and out-of-range values and ranks, negative and over-wide payloads,
-   1/2/4-byte cuts, repeated ranks, domains on both sides of the
-   shared-memory limit), then every hist and scatter call of one bench
-   window's device build, captured from the build and timed (kernel,
-   plain and one `scatter_add_` per output as the library yardstick, the
-   window's calls replayed from a CUDA graph) with CUDA events; the
+   on the card, integer-equal: random cases on every route their launch
+   plans choose (one CTA per row; clusters of 2-16 CTAs, past one
+   CTA's shared memory up to D = 929,792; global), each without and
+   with a valid mask (B not a multiple of 8, -1 and out-of-range values
+   and ranks, hot bins, negative and over-wide payloads, 1-4-byte cuts,
+   repeated ranks, clusters forced on small domains), then every hist
+   and scatter call of one bench window's device build, captured from
+   the build with its valid masks and held in both forms: as the build
+   makes it (masked) and with the mask folded into the values
+   (pre-masked, the form the earlier kernels took). Each form's window is
+   captured in a CUDA graph whose node count (one kernel node per call,
+   no memset node) is printed and checked, then timed (kernel
+   pre-masked and masked, plain and one `scatter_add_` per output as
+   the library yardstick, in turns, replayed from CUDA graphs) with
+   CUDA events, then each call alone (pre-masked) with its plan and
+   bound; the
    window's DP call, captured too, is held bitwise and timed.
 4b. The kernel-variant microbench's kernels P1-P3 (`hist_v1`, `hist_v2`,
    `pallas_scatter`) against their plain versions, integer-equal: random
@@ -45,8 +54,9 @@ Phases, in order; any failure exits non-zero before the last line:
    the runs each > 0. Prints the host fallbacks by reason, the stages'
    host-clock seconds, b/s, and a traced run's device busy time.
 6. A JSON line of kernels (each with its launches on the main paths,
-   max_abs_err, ms, plain_ms, bound_ms and library_ms), then the last
-   line:
+   max_abs_err, ms, plain_ms, bound_ms and library_ms; hist and scatter
+   also with their masked window and their per-call readings), then the
+   last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 """
 
@@ -125,27 +135,6 @@ def time_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def graph_ms(fn, reps: int) -> float:
-    """Device ms of `fn` captured once in a CUDA graph and replayed
-    `reps` times (no host launch cost in the time)."""
-    import torch
-
-    fn()  # warm-up outside the capture
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    graph.replay()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        graph.replay()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
 def trace_report(label, prof, wall, card, top, batches=None) -> None:
     """Device busy time (the union of kernel and copy spans on the card)
     of a torch.profiler run against its wall time, and the top spans."""
@@ -201,6 +190,7 @@ def main() -> int:
         unpack_arena,
     )
     from pbdagcon_tpu_torch.pipeline import _choose_layout_native, run_stream
+    from pbdagcon_tpu_torch.tools.cuda_graph import graph_ms
 
     t = time.time()
     if not native.ensure_built():
@@ -382,7 +372,6 @@ def main() -> int:
     cuda_path_launches = launches
 
     # ---- phase 4: hist and scatter kernels vs plain versions ----
-    from pbdagcon_tpu_torch import devpipe
     from pbdagcon_tpu_torch.ops import mxu, mxu_cuda
 
     def int_err(a, b) -> int:
@@ -390,83 +379,75 @@ def main() -> int:
 
     worst_k = {"hist": 0, "scatter": 0}
     rng = np.random.default_rng(SEED + 2)
-    for B, N, D in ((3, 700, 257), (37, 41000, 15000), (5, 5000, 60000),
-                    (129, 100, 8), (7, 20000, 245000)):
-        v = torch.from_numpy(
-            rng.integers(-3, D + 5, (B, N)).astype(np.int32)).to(dev)
-        got, want = mxu_cuda.hist_cuda(v, D), mxu.hist_reference(v, D)
-        ok = torch.equal(got, want)
-        worst_k["hist"] = max(worst_k["hist"], int_err(got, want))
-        log(f"hist B={B} N={N} D={D}: {'equal' if ok else 'MISMATCH'}")
-        if not ok:
-            raise SystemExit("chip_smoke: hist kernel != plain version")
-    for B, N, D, nb, rep in ((3, 700, 800, 1, False), (37, 5000, 5000, 2, False),
-                             (5, 40000, 4000, 4, True), (11, 3000, 300, 3, True)):
-        r = (rng.integers(-3, D + 5, (B, N)) if rep else
-             np.stack([rng.permutation(N) for _ in range(B)]) - 2)
-        r = torch.from_numpy(r.astype(np.int32)).to(dev)
-        ps = tuple(torch.from_numpy(rng.integers(
-            -(1 << 31), (1 << 31) - 1, (B, N)).astype(np.int32)).to(dev)
-            for _ in range(2))
-        mask = (1 << (8 * nb)) - 1
-        pairs = list(zip(mxu_cuda.scatter_cuda(r, ps, D, mask),
-                         mxu.scatter_reference(r, ps, D, mask)))
-        ok = all(torch.equal(a, b) for a, b in pairs)
-        worst_k["scatter"] = max([worst_k["scatter"]]
-                                 + [int_err(a, b) for a, b in pairs])
-        log(f"scatter B={B} N={N} D={D} nbytes={nb} repeated={rep}: "
-            f"{'equal' if ok else 'MISMATCH'}")
-        if not ok:
-            raise SystemExit("chip_smoke: scatter kernel != plain version")
+
+    # Random cases on every route the plans choose (one CTA per row;
+    # clusters of 2, 5 and 16 CTAs; global), each unmasked and masked,
+    # then clusters of 4 and 8 forced on small domains with hot bins.
+    for B, N, D, cs in ((3, 700, 257, None), (37, 41000, 15000, None),
+                        (5, 5000, 60000, None), (129, 100, 8, None),
+                        (300, 100, 50, None), (7, 20000, 245000, None),
+                        (3, 9000, 929_792, None), (2, 100, 1_000_000, None),
+                        (5, 3000, 300, 4), (3, 40000, 64, 8)):
+        plan = (mxu_cuda.hist_plan(B, N, D) if cs is None
+                else mxu_cuda.cluster_plan(N, D, 1, cs))
+        for masked in (False, True):
+            vn = rng.integers(-3, D + 5, (B, N)).astype(np.int32)
+            vn[:, ::5] = D - 1
+            v = torch.from_numpy(vn).to(dev)
+            valid = (torch.from_numpy(rng.random((B, N)) < 0.8).to(dev)
+                     if masked else None)
+            got = mxu_cuda.hist_cuda(v, valid, D, plan=plan)
+            want = mxu.hist_reference(v, valid, D)
+            ok = torch.equal(got, want)
+            worst_k["hist"] = max(worst_k["hist"], int_err(got, want))
+            log(f"hist B={B} N={N} D={D} masked={masked} "
+                f"[{plan.describe()}]: {'equal' if ok else 'MISMATCH'}")
+            if not ok:
+                raise SystemExit("chip_smoke: hist kernel != plain version")
+    for B, N, D, nb, NP, rep, cs in (
+            (3, 700, 800, 1, 2, False, None), (37, 5000, 5000, 2, 2, False, None),
+            (5, 40000, 4000, 4, 2, True, None), (11, 3000, 300, 3, 2, True, None),
+            (128, 6144, 78848, 4, 2, False, None),
+            (7, 30000, 70001, 2, 1, True, None), (6, 20000, 60000, 4, 4, False, None),
+            (2, 40000, 4000, 3, 4, True, None), (128, 64, 2052, 4, 1, True, None),
+            (5, 3001, 300, 3, 3, True, 2), (3, 40000, 64, 4, 2, True, 8)):
+        plan = (mxu_cuda.scatter_plan(B, N, D, NP) if cs is None
+                else mxu_cuda.cluster_plan(N, D, NP, cs))
+        for masked in (False, True):
+            r = (rng.integers(-3, D + 5, (B, N)) if rep else
+                 np.stack([rng.permutation(D + 5)[:N] for _ in range(B)]) - 2)
+            r = torch.from_numpy(r.astype(np.int32)).to(dev)
+            valid = (torch.from_numpy(rng.random((B, N)) < 0.8).to(dev)
+                     if masked else None)
+            ps = tuple(torch.from_numpy(rng.integers(
+                -(1 << 31), (1 << 31) - 1, (B, N)).astype(np.int32)).to(dev)
+                for _ in range(NP))
+            mask = (1 << (8 * nb)) - 1
+            pairs = list(zip(mxu_cuda.scatter_cuda(r, valid, ps, D, mask, plan=plan),
+                             mxu.scatter_reference(r, valid, ps, D, mask)))
+            ok = all(torch.equal(a, b) for a, b in pairs)
+            worst_k["scatter"] = max([worst_k["scatter"]]
+                                     + [int_err(a, b) for a, b in pairs])
+            log(f"scatter B={B} N={N} D={D} nbytes={nb} NP={NP} repeated={rep} "
+                f"masked={masked} [{plan.describe()}]: "
+                f"{'equal' if ok else 'MISMATCH'}")
+            if not ok:
+                raise SystemExit("chip_smoke: scatter kernel != plain version")
 
     # Every hist/scatter call and the DP call of one bench window's
-    # build, captured.
-    calls = {"hist": [], "scatter": [], "dp": []}
+    # build, captured with the valid mask the build passes.
+    from pbdagcon_tpu_torch.tools.bins_ablate import call_shape, capture_window
+
     real_hist, real_scatter = mxu_cuda.hist_cuda, mxu_cuda.scatter_cuda
     real_dp = dp_cuda.dp_scores_cuda
-
-    def rec_dp(*args):
-        calls["dp"].append(tuple(a.clone() for a in args))
-        return real_dp(*args)
-
-    def rec_hist(values, D):
-        calls["hist"].append((values.clone(), D))
-        return real_hist(values, D)
-
-    def rec_scatter(ranks, payloads, D, cut_mask):
-        calls["scatter"].append(
-            (ranks.clone(), tuple(p.clone() for p in payloads), D, cut_mask))
-        return real_scatter(ranks, payloads, D, cut_mask)
-
     with native.NativeEngine(
         min_weight=min_weight, min_length=100, threads=threads, align=True
     ) as eng:
         cnt = eng.encode_text(text, fmt="pre")
-        metas = eng.enc_metas(DEVBUILD_BATCH)
-        R, C, L = (int(metas[:, k].max()) for k in range(3))
-        bkey = (devpipe._ladder(R, devpipe._R_LADDER),
-                devpipe._ladder(C, devpipe._C_LADDER),
-                devpipe._ladder(L, devpipe._L_LADDER))
-        prof = devpipe._profile(int(metas[:, 3].sum()), int(metas[:, 4].sum()))
-        caps = devpipe.choose_window_caps(
-            bkey + (prof.W,), metas, prof, {}, {}, {})
-        idxs = [i for i in range(DEVBUILD_BATCH)
-                if int(metas[i, 3]) <= devpipe.ins_cap(caps)]
-        host = native.enc_fill_packed(
-            eng, idxs, caps.R, caps.C, caps.L, devpipe.ins_cap(caps),
-            B=caps.B, pin_memory=True)
-    inputs = tuple(x.to(dev) for x in host)
-    P = min(caps.V, 2 * caps.L + 64)
-    mxu_cuda.hist_cuda, mxu_cuda.scatter_cuda = rec_hist, rec_scatter
-    dp_cuda.dp_scores_cuda = rec_dp
-    try:
-        devpipe.run_batch(inputs, caps, P, min_weight, packed=True)
-    finally:
-        mxu_cuda.hist_cuda, mxu_cuda.scatter_cuda = real_hist, real_scatter
-        dp_cuda.dp_scores_cuda = real_dp
-    torch.cuda.synchronize()
+        calls, caps, n_window = capture_window(eng, DEVBUILD_BATCH,
+                                               min_weight, dev)
     log(f"bench window caps: {caps} ({cnt} targets encoded, window of "
-        f"{len(idxs)})")
+        f"{n_window})")
 
     # The window's DP call: bitwise, then timed in turns.
     (dp_args,) = calls.pop("dp")
@@ -487,14 +468,19 @@ def main() -> int:
         f"[{card}]")
     del dp_args, got, want
 
-    def run_hist(plain):
-        for values, D in calls["hist"]:
-            (mxu.hist_reference if plain else real_hist)(values, D)
+    # Each call also in the pre-masked form (`valid` folded into the
+    # values as -1, valid=None): the form the earlier kernels took, whose
+    # window times PERF.md holds.
+    def premask(c):
+        v = c[0] if c[1] is None else torch.where(c[1], c[0], -1)
+        return (v, None, *c[2:])
 
-    def run_scatter(plain):
-        for ranks, payloads, D, mask in calls["scatter"]:
-            (mxu.scatter_reference if plain else real_scatter)(
-                ranks, payloads, D, mask)
+    masked_calls = calls
+    calls = {k: [premask(c) for c in cs] for k, cs in masked_calls.items()}
+
+    def run_calls(fn, cs):
+        for c in cs:
+            fn(*c)
 
     # The library yardstick: one `scatter_add_` per output (into a zeroed
     # [B, D + 1] int32 tensor, the last column taking what is dropped),
@@ -502,7 +488,7 @@ def main() -> int:
     # timed region. The port never calls it.
     def lib_hist_prep(cs):
         out = []
-        for values, D in cs:
+        for values, _valid, D in cs:
             ok = (values >= 0) & (values < D)
             out.append((torch.where(ok, values, D).long(),
                         torch.ones_like(values), D))
@@ -510,7 +496,7 @@ def main() -> int:
 
     def lib_scatter_prep(cs):
         out = []
-        for ranks, payloads, D, mask in cs:
+        for ranks, _valid, payloads, D, mask in cs:
             ok = (ranks >= 0) & (ranks < D)
             idx = torch.where(ok, ranks, D).long()
             for p in payloads:
@@ -523,50 +509,102 @@ def main() -> int:
                         device=dev).scatter_add_(1, idx, src)
 
     def window_bytes(op, cs) -> int:
-        """Each call's inputs read once and outputs written once."""
+        """Each call's inputs read once (the valid bytes where a call
+        has them) and outputs written once."""
         if op == "hist":
-            return sum(nbytes(v) + v.shape[0] * D * 4 for v, D in cs)
-        return sum(nbytes(r, *ps) + len(ps) * r.shape[0] * D * 4
-                   for r, ps, D, _ in cs)
+            return sum(nbytes(v) + (0 if m is None else nbytes(m))
+                       + v.shape[0] * D * 4 for v, m, D in cs)
+        return sum(nbytes(r, *ps) + (0 if m is None else nbytes(m))
+                   + len(ps) * r.shape[0] * D * 4 for r, m, ps, D, _ in cs)
+
+    def graph_nodes(fn) -> dict:
+        """Node types of `fn` captured in a CUDA graph."""
+        from pbdagcon_tpu_torch.tools.cuda_graph import node_counts
+
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(g):
+            fn()
+        return node_counts(g.raw_cuda_graph())
 
     lib_prep = {"hist": lib_hist_prep, "scatter": lib_scatter_prep}
-    timed = {}
-    for name, run in (("hist", run_hist), ("scatter", run_scatter)):
-        for c in calls[name]:
-            if name == "hist":
-                pairs = [(real_hist(*c), mxu.hist_reference(*c))]
-            else:
-                pairs = list(zip(real_scatter(*c), mxu.scatter_reference(*c)))
-            ok = all(torch.equal(a, b) for a, b in pairs)
-            worst_k[name] = max([worst_k[name]] + [int_err(a, b) for a, b in pairs])
-            if not ok:
-                raise SystemExit(f"chip_smoke: {name} kernel != plain "
-                                 f"version on a bench window call")
-        # In turns (plain, kernel, library, library, kernel, plain);
-        # device ms for all the window's calls, replayed from a CUDA graph
-        # (an eager loop would time the host's launches).
+    plain = {"hist": mxu.hist_reference, "scatter": mxu.scatter_reference}
+    real = {"hist": real_hist, "scatter": real_scatter}
+    timed, window_masked, per_call = {}, {}, {}
+    for name in ("hist", "scatter"):
+        for form in (calls[name], masked_calls[name]):
+            for c in form:
+                if name == "hist":
+                    pairs = [(real_hist(*c), mxu.hist_reference(*c))]
+                else:
+                    pairs = list(zip(real_scatter(*c), mxu.scatter_reference(*c)))
+                ok = all(torch.equal(a, b) for a, b in pairs)
+                worst_k[name] = max([worst_k[name]]
+                                    + [int_err(a, b) for a, b in pairs])
+                if not ok:
+                    raise SystemExit(f"chip_smoke: {name} kernel != plain "
+                                     f"version on a bench window call")
+        for label, form in (("pre-masked", calls[name]),
+                            ("masked", masked_calls[name])):
+            nodes = graph_nodes(lambda f=form: run_calls(real[name], f))
+            log(f"{name} window graph ({label}): nodes {nodes} for "
+                f"{len(form)} calls")
+            if nodes.get("memset") or nodes.get("kernel") != len(form):
+                raise SystemExit(f"chip_smoke: {name} window is not one kernel "
+                                 f"node per call: {nodes}")
+        # In turns (plain, kernel, masked, library, library, masked, kernel,
+        # plain); device ms for all the window's calls, replayed from a
+        # CUDA graph (an eager loop would time the host's launches).
         prep = lib_prep[name](calls[name])
-        pa = graph_ms(lambda: run(True), 20)
-        ka = graph_ms(lambda: run(False), 20)
-        la = graph_ms(lambda: run_lib(prep), 20)
-        lb = graph_ms(lambda: run_lib(prep), 20)
-        kb = graph_ms(lambda: run(False), 20)
-        pb = graph_ms(lambda: run(True), 20)
-        timed[name] = ((ka + kb) / 2, (pa + pb) / 2, (la + lb) / 2,
+        runs = {
+            "plain": lambda: run_calls(plain[name], calls[name]),
+            "kernel": lambda: run_calls(real[name], calls[name]),
+            "masked": lambda: run_calls(real[name], masked_calls[name]),
+            "library": lambda: run_lib(prep),
+        }
+        ms = {k: [] for k in runs}
+        for k in list(runs) + list(runs)[::-1]:
+            ms[k].append(graph_ms(runs[k], 20))
+        avg = {k: sum(v) / 2 for k, v in ms.items()}
+        timed[name] = (avg["kernel"], avg["plain"], avg["library"],
                        bound_ms(window_bytes(name, calls[name])))
-        shapes = sorted({tuple(c[0].shape) + (c[-1] if name == "hist" else c[2],)
-                         for c in calls[name]})
-        log(f"{name}: {len(calls[name])} calls per bench window (B, N, D in "
-            f"{shapes}), all equal to the plain version; kernel {ka} / {kb} "
-            f"ms, plain PyTorch {pa} / {pb} ms, library scatter_add_ {la} / "
-            f"{lb} ms, bound {timed[name][3]} ms; device ms per window "
-            f"(CUDA graph) [{card}]")
+        window_masked[name] = {
+            "ms": avg["masked"],
+            "bound_ms": bound_ms(window_bytes(name, masked_calls[name])),
+        }
+        shapes = sorted({call_shape(name, c) for c in calls[name]})
+        log(f"{name}: {len(calls[name])} calls per bench window (B, N, D, "
+            f"NP in {shapes}), all equal to "
+            f"the plain version, pre-masked and masked; device ms per window "
+            f"(CUDA graph): " + ", ".join(f"{k} {v[0]} / {v[1]}"
+                                         for k, v in ms.items())
+            + f"; bound {timed[name][3]} ms (masked "
+            f"{window_masked[name]['bound_ms']} ms) [{card}]")
+        # Each call alone (pre-masked), 20 copies to a graph: a single
+        # call of a few microseconds would read the graph replay's own
+        # floor. Other plans: `tools/bins_ablate.py`.
+        per_call[name] = []
+        for c in calls[name]:
+            one = {
+                "shape": call_shape(name, c),
+                "plan": mxu_cuda.bin_plan(*call_shape(name, c)).describe(),
+                "ms": graph_ms(lambda c=c: real[name](*c), 10, copies=20),
+                "bound_ms": bound_ms(window_bytes(name, [c])),
+            }
+            per_call[name].append(one)
+            log(f"  {name} call {one['shape']} [{one['plan']}]: kernel "
+                f"{one['ms']:.4f} ms (bound {one['bound_ms']:.4f})")
 
     # ---- phase 4b: the microbench's kernels P1-P3 vs plain versions ----
     from pbdagcon_tpu_torch.ops import pk_cuda
     from pbdagcon_tpu_torch.tools import prof_pk
 
     p_hist = {"hist_v1": pk_cuda.hist_v1_cuda, "hist_v2": pk_cuda.hist_v2_cuda}
+    # The variants take no mask: they run on the pre-masked calls.
+    p_window = {name: (lambda v, _m, D, f=f: f(v, D)) for name, f in p_hist.items()}
+    p_window["pallas_scatter"] = (lambda r, _m, ps, D, mask:
+                                  pk_cuda.scatter_tile_cuda(r, ps, D, mask))
     worst_p = {"hist_v1": 0, "hist_v2": 0, "pallas_scatter": 0}
 
     def takes(name, D) -> bool:
@@ -579,7 +617,7 @@ def main() -> int:
                              f"({what})")
 
     def hold_hist(values, D, what) -> None:
-        want = mxu.hist_reference(values, D)
+        want = mxu.hist_reference(values, None, D)
         for name, f in p_hist.items():
             if takes(name, D):
                 hold(name, [(f(values, D), want)], what)
@@ -587,7 +625,7 @@ def main() -> int:
     def hold_scatter(ranks, payloads, D, mask, what) -> None:
         hold("pallas_scatter", list(zip(
             pk_cuda.scatter_tile_cuda(ranks, payloads, D, mask),
-            mxu.scatter_reference(ranks, payloads, D, mask))), what)
+            mxu.scatter_reference(ranks, None, payloads, D, mask))), what)
 
     rng = np.random.default_rng(SEED + 3)
     # Random cases, P1's hi-width edges (wgmma widths filled and spilled,
@@ -621,23 +659,23 @@ def main() -> int:
         hold_scatter(torch.from_numpy(r.astype(np.int32)).to(dev), ps, D,
                      (1 << (8 * nb)) - 1, what)
         log(f"pallas_scatter {what}: equal")
-    for values, D in calls["hist"]:
+    for values, _valid, D in calls["hist"]:
         hold_hist(values, D, "a bench window call")
-    for ranks, payloads, D, mask in calls["scatter"]:
+    for ranks, _valid, payloads, D, mask in calls["scatter"]:
         hold_scatter(ranks, payloads, D, mask, "a bench window call")
     torch.cuda.synchronize()
 
     # Device ms per bench window (the window's calls replayed from a CUDA
     # graph), in turns (plain, B, P..., P..., B, plain), on the calls that
     # every variant takes.
-    hist_calls = [c for c in calls["hist"] if takes("hist_v2", c[1])]
+    hist_calls = [c for c in calls["hist"] if takes("hist_v2", c[2])]
     variants = {
         "hist": (hist_calls, {"plain": mxu.hist_reference, "B2": real_hist,
-                              **p_hist}),
+                              **{k: p_window[k] for k in p_hist}}),
         "scatter": (calls["scatter"], {"plain": mxu.scatter_reference,
                                        "B3": real_scatter,
                                        "pallas_scatter":
-                                           pk_cuda.scatter_tile_cuda}),
+                                           p_window["pallas_scatter"]}),
     }
     window_ms = {}
     for op, (cs, fns) in variants.items():
@@ -657,9 +695,8 @@ def main() -> int:
             + ", ".join(f"{k} {v[0]} / {v[1]}" for k, v in ms.items())
             + f" [{card}]")
         for c in cs:  # one reading per call and design
-            shape = tuple(c[0].shape) + (c[1] if op == "hist" else c[2],)
-            log(f"  {op} B, N, D = {shape}: device ms " + ", ".join(
-                f"{k} {graph_ms(lambda f=f, c=c: f(*c), 20):.4f}"
+            log(f"  {op} B, N, D = {call_shape(op, c)[:3]}: device ms " + ", ".join(
+                f"{k} {graph_ms(lambda f=f, c=c: f(*c), 10, copies=20):.4f}"
                 for k, f in fns.items()))
 
     # The microbench at full size: the variants' own main path.
@@ -671,7 +708,7 @@ def main() -> int:
         raise SystemExit(f"chip_smoke: the microbench failed (lines of "
                          f"{disagree} disagree; launches {pk_launches})")
     log(f"prof_pk: every shape's lines agree; launches {pk_launches} [{card}]")
-    del calls, inputs, host, prep
+    del calls, masked_calls, prep
 
     # ---- phase 5: the devbuild path at full size ----
     dcfg = DagconConfig(
@@ -757,6 +794,8 @@ def main() -> int:
         "bound_ms": hist_bound,
         "bound_by": "bytes",
         "library_ms": hist_lib,
+        "window_masked": window_masked["hist"],
+        "per_call": per_call["hist"],
     }, {
         "name": "scatter",
         "route": "cuda",
@@ -769,6 +808,8 @@ def main() -> int:
         "bound_ms": sc_bound,
         "bound_by": "bytes",
         "library_ms": sc_lib,
+        "window_masked": window_masked["scatter"],
+        "per_call": per_call["scatter"],
     }] + [{
         "name": name,
         "route": "cuda",

@@ -3,7 +3,10 @@ the reference flags and the JAX package's CLI.
 
 Reference flags: positional M5/'pre' input (or stdin), `-c` min coverage
 (8), `-m` min length (500), `-j` threads (4), `-t` trim (0), `-a`
-re-align. `--backend devbuild` runs the graph build, the DP and the
+re-align. `--align-scorer`, `--affine-params` and `--align-backend` are
+the JAX package's -a knobs, with its names, choices and defaults;
+`--align-backend device` raises until the device aligner is ported
+(ROADMAP A12). `--backend devbuild` runs the graph build, the DP and the
 backtrack on the device. `--device` picks the device (default cuda;
 "cpu" runs the kernels' plain PyTorch versions). `--distributed` comes with the
 multi-device slice (ROADMAP A14).
@@ -72,6 +75,22 @@ def build_parser() -> argparse.ArgumentParser:
         "for the kernels' plain PyTorch versions)",
     )
     p.add_argument(
+        "--align-backend", choices=("host", "device"), default="host",
+        help="where -a re-alignment runs: threaded C++ banded DP (host) "
+        "or the batched device kernel (device; not ported yet, ROADMAP "
+        "A12: raises); both are exact",
+    )
+    p.add_argument(
+        "--align-scorer", choices=("simple", "affine"), default="simple",
+        help="-a scoring scheme: linear-gap 1/-2/-3 (simple, default) "
+        "or affine Gotoh (SPEC §1.6); see docs/SCORER_SENSITIVITY.md",
+    )
+    p.add_argument(
+        "--affine-params", default="1,-2,-4,-1", metavar="M,X,O,E",
+        help="affine scorer parameters match,mismatch,open,extend "
+        "(gap of length k scores open+(k-1)*extend)",
+    )
+    p.add_argument(
         "--batch-targets", type=int, default=128,
         help="targets per device batch",
     )
@@ -125,6 +144,9 @@ def main(argv: list[str] | None = None) -> int:
         threads=args.threads,
         trim=args.trim,
         align=args.align,
+        align_backend=args.align_backend,
+        align_scorer=args.align_scorer,
+        affine_params=tuple(int(x) for x in args.affine_params.split(",")),
         fmt=args.fmt,
         backend=args.backend,
         device=args.device,

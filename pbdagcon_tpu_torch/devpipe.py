@@ -454,6 +454,10 @@ def run_devbuild_pipeline(
                 nd_need=nd_n, dq_need=dq_n, se_need=se_n,
             )
             # The ins stream is fixed per caps; longer ones take the host.
+            reasons.update(
+                (i, "ins_cap") for i, e in batchables
+                if len(e.ins_base) > ins_cap(caps)
+            )
             batchables = [
                 (i, e) for i, e in batchables if len(e.ins_base) <= ins_cap(caps)
             ]
@@ -614,9 +618,9 @@ def run_devbuild_native(stream, out, cfg, stats, device, journal=None):
 
     def emit_window(win: dict) -> None:
         texts: dict[int, str] = {}
-        host_idx: list[int] = list(win["fallback"])
-        for _ in host_idx:
-            stats.fallback("oversize")
+        host_idx: list[int] = [i for i, _why in win["fallback"]]
+        for _i, why in win["fallback"]:
+            stats.fallback(why)
         for part, fetch, bkey, caps in win["batches"]:
             t0 = time.perf_counter()
             o = fetch.result()
@@ -678,12 +682,14 @@ def run_devbuild_native(stream, out, cfg, stats, device, journal=None):
     def submit_window(offset: int, count: int) -> dict:
         """Bucket and dispatch one window (engine indices offset ..
         offset + count - 1); indices in the returned work are
-        window-relative."""
+        window-relative. Its "fallback" holds (index, reason) of the
+        targets that go to the host before the device: "oversize" past
+        every shape ladder, "ins_cap" past the insertion-stream cap."""
         metas = eng.enc_metas(count, offset=offset)
         sids = [eng.enc_sid(offset + i) for i in range(count)]
         prof = _profile(int(metas[:, 3].sum()), int(metas[:, 4].sum()))
         buckets: dict[tuple, list[int]] = {}
-        fallback: list[int] = []
+        fallback: list[tuple[int, str]] = []
         for i in range(count):
             R, C, L = (int(x) for x in metas[i, :3])
             key = (
@@ -692,7 +698,7 @@ def run_devbuild_native(stream, out, cfg, stats, device, journal=None):
                 _ladder(max(L, 1), _L_LADDER),
             )
             if None in key:
-                fallback.append(i)
+                fallback.append((i, "oversize"))
             else:
                 buckets.setdefault(key, []).append(i)
         batches = []
@@ -702,7 +708,9 @@ def run_devbuild_native(stream, out, cfg, stats, device, journal=None):
                 bkey, metas[idxs], prof, w_state, v_state, need_recent
             )
             NI = ins_cap(caps)
-            fallback.extend(i for i in idxs if int(metas[i, 3]) > NI)
+            fallback.extend(
+                (i, "ins_cap") for i in idxs if int(metas[i, 3]) > NI
+            )
             idxs = [i for i in idxs if int(metas[i, 3]) <= NI]
             P = min(caps.V, 2 * caps.L + 64)
             for lo in range(0, len(idxs), caps.B):

@@ -4,7 +4,11 @@ The engine is the repo's C++ host side: streaming M5/'pre' parse, gap
 normalization, graph build + merge, linearization, float32 DP,
 backtrack, FASTA emission, multithreaded over targets. Build: `make -C
 native` (plain g++); `ensure_built()` attempts it, `available()` says
-whether the library loads.
+whether the library loads. Both take the native directory (default: the
+repo's `native/`) and are safe to call from many processes at once: a
+build holds an flock on the directory's lock file and writes a
+temporary library that is moved into place, so no process loads a
+half-written one (several test workers load it while they collect).
 
 `NativeEngine`, `available`, `ensure_built` and the ctypes signatures
 are the port's copy of `pbdagcon_tpu/native.py`, cut to the entry
@@ -17,7 +21,9 @@ same for the device build's encoded inputs (`dagcon_enc_fill_packed`).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import subprocess
 
@@ -27,40 +33,92 @@ import torch
 from pbdagcon_tpu_torch.ops.dp import LongEdgeOverflow, arena_layout
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libdagcon.so")
+_LIB_NAME = "libdagcon.so"
+_LOCK_NAME = ".libdagcon.so.lock"
 
-_lib: ctypes.CDLL | None = None
-_load_failed = False
+# Loaded libraries by native directory (None: it failed to build or load).
+_libs: dict[str, ctypes.CDLL | None] = {}
 
 
-def ensure_built(force: bool = False) -> bool:
-    """Build libdagcon.so if missing; True if the library exists after."""
-    if os.path.exists(_LIB_PATH) and not force:
-        return True
+@contextlib.contextmanager
+def _build_lock(native_dir: str):
+    """An exclusive flock on the native directory's lock file: one build
+    at a time across processes."""
+    fd = os.open(os.path.join(native_dir, _LOCK_NAME), os.O_CREAT | os.O_RDWR,
+                 0o644)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)  # drops the lock
+
+
+def _build_locked(native_dir: str) -> bool:
+    """With the build lock held: `make` into a temporary name, then
+    os.replace it into place, so the library's path only ever names a
+    whole file. True on success."""
+    tmp = f"{_LIB_NAME}.{os.getpid()}.tmp"
     try:
         subprocess.run(
-            ["make", "-C", _NATIVE_DIR, "-s"],
-            check=True,
-            capture_output=True,
-            timeout=300,
+            ["make", "-C", native_dir, "-s", f"TARGET={tmp}"],
+            check=True, capture_output=True, timeout=300,
         )
-    except Exception:
+        os.replace(os.path.join(native_dir, tmp),
+                   os.path.join(native_dir, _LIB_NAME))
+    except (subprocess.SubprocessError, OSError):
         return False
-    return os.path.exists(_LIB_PATH)
+    finally:
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(os.path.join(native_dir, tmp))
+    return True
 
 
-def _load() -> ctypes.CDLL | None:
-    global _lib, _load_failed
-    if _lib is not None or _load_failed:
-        return _lib
-    if not os.path.exists(_LIB_PATH) and not ensure_built():
-        _load_failed = True
+def ensure_built(force: bool = False, native_dir: str = _NATIVE_DIR) -> bool:
+    """Build libdagcon.so if missing (or if `force`); True if the library
+    exists after. Safe to call from many processes at once: builds take
+    the build lock and write a temporary file that is moved into place."""
+    path = os.path.join(native_dir, _LIB_NAME)
+    if os.path.exists(path) and not force:
+        return True
+    with _build_lock(native_dir):
+        if os.path.exists(path) and not force:  # built while we waited
+            return True
+        return _build_locked(native_dir)
+
+
+def _open(native_dir: str) -> ctypes.CDLL | None:
+    """dlopen the library, built first if missing. A library that does
+    not open (a file another build, such as `make -C native` run by
+    hand, has not finished) is rebuilt once under the lock."""
+    path = os.path.join(native_dir, _LIB_NAME)
+    if not ensure_built(native_dir=native_dir):
         return None
     try:
-        lib = ctypes.CDLL(_LIB_PATH)
+        return ctypes.CDLL(path)
     except OSError:
-        _load_failed = True
+        pass
+    with _build_lock(native_dir):
+        if not _build_locked(native_dir):
+            return None
+    try:
+        return ctypes.CDLL(path)
+    except OSError:
         return None
+
+
+def _load(native_dir: str = _NATIVE_DIR) -> ctypes.CDLL | None:
+    """The library of `native_dir` with its ctypes signatures (cached
+    per directory), or None if it cannot be built or loaded."""
+    if native_dir in _libs:
+        return _libs[native_dir]
+    lib = _open(native_dir)
+    if lib is not None:
+        _bind(lib)
+    _libs[native_dir] = lib
+    return lib
+
+
+def _bind(lib: ctypes.CDLL) -> None:
     c_char_pp = ctypes.POINTER(ctypes.c_char_p)
     c_long_p = ctypes.POINTER(ctypes.c_long)
     i32p = ctypes.POINTER(ctypes.c_int32)
@@ -137,12 +195,10 @@ def _load() -> ctypes.CDLL | None:
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int,
     ]
-    _lib = lib
-    return _lib
 
 
-def available() -> bool:
-    return _load() is not None
+def available(native_dir: str = _NATIVE_DIR) -> bool:
+    return _load(native_dir) is not None
 
 
 class NativeEngine:

@@ -102,11 +102,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.dagcon_dp_scan.argtypes = [vp] * 8 + [ci] * 4 + [vp]
     if name == "hist_scatter":
         lib.dagcon_hist.restype = ci
-        lib.dagcon_hist.argtypes = [vp, vp, ci, ci, ci, vp]
+        # (values, valid, out, B, N, D, plan x 5, stream)
+        lib.dagcon_hist.argtypes = [vp, vp, vp] + [ci] * 8 + [vp]
         lib.dagcon_scatter.restype = ci
+        # (ranks, valid, payloads, outs, NP, B, N, D, cut_mask, plan x 5,
+        # stream)
         lib.dagcon_scatter.argtypes = [
-            vp, ctypes.POINTER(vp), ctypes.POINTER(vp), ci, ci, ci, ci,
-            ctypes.c_uint, vp,
+            vp, vp, ctypes.POINTER(vp), ctypes.POINTER(vp), ci, ci, ci, ci,
+            ctypes.c_uint, *[ci] * 5, vp,
         ]
     if name == "pk_variants":
         lib.dagcon_hist_wgmma.restype = ci

@@ -21,7 +21,9 @@ On a CUDA tensor every histogram and scatter goes to its hand-written
 kernel (`ops/mxu_cuda.py`, `csrc/hist_scatter.cu`), which raises if it
 cannot run; on a CPU tensor to its plain PyTorch version below
 (`scatter_add_` on integers: no matmul, so no TF32 rounding can reach a
-count). There is no fallback from one to the other. The gathers are
+count). Both take the `valid` mask as it is given and read it
+themselves, as XLA fuses the TPU form's `where` into the kernel's input.
+There is no fallback from one to the other. The gathers are
 `torch.gather` on both; the TPU needed the one-hot forms only because
 its hardware gather was slow.
 """
@@ -57,19 +59,21 @@ def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(I32)
 
 
-def _masked(values: torch.Tensor, valid) -> torch.Tensor:
-    v = values.to(I32)
-    return torch.where(valid, v, torch.full_like(v, -1))
-
-
 # ---- plain PyTorch versions of the kernels -------------------------------
 
 
-def hist_reference(values: torch.Tensor, D: int) -> torch.Tensor:
+def _ok(idx: torch.Tensor, valid, D: int) -> torch.Tensor:
+    """Elements that count: valid (where a mask is given) and in [0, D)."""
+    ok = (idx >= 0) & (idx < D)
+    return ok if valid is None else ok & valid
+
+
+def hist_reference(values: torch.Tensor, valid, D: int) -> torch.Tensor:
     """Plain version of the hist kernel: [B, N] int32 -> [B, D] int32
-    counts of the values in [0, D) (others dropped)."""
+    counts of the valid values in [0, D) (others dropped; `valid` a bool
+    mask broadcastable to [B, N], or None)."""
     B = values.shape[0]
-    ok = (values >= 0) & (values < D)
+    ok = _ok(values, valid, D)
     idx = torch.where(ok, values, torch.full_like(values, D)).long()
     out = torch.zeros((B, D + 1), dtype=I32, device=values.device)
     out.scatter_add_(1, idx, ok.to(I32))
@@ -77,14 +81,14 @@ def hist_reference(values: torch.Tensor, D: int) -> torch.Tensor:
 
 
 def scatter_reference(
-    ranks: torch.Tensor, payloads: tuple[torch.Tensor, ...], D: int,
+    ranks: torch.Tensor, valid, payloads: tuple[torch.Tensor, ...], D: int,
     cut_mask: int,
 ) -> tuple[torch.Tensor, ...]:
     """Plain version of the scatter kernel: out[k][b, ranks[b, n]] +=
-    payloads[k][b, n] & cut_mask in int32 with wraparound (summed in
-    int64, then wrapped); ranks outside [0, D) dropped."""
+    payloads[k][b, n] & cut_mask over valid n, in int32 with wraparound
+    (summed in int64, then wrapped); ranks outside [0, D) dropped."""
     B = ranks.shape[0]
-    ok = (ranks >= 0) & (ranks < D)
+    ok = _ok(ranks, valid, D)
     idx = torch.where(ok, ranks, torch.full_like(ranks, D)).long()
     outs = []
     for p in payloads:
@@ -97,34 +101,36 @@ def scatter_reference(
 # ---- dispatchers ---------------------------------------------------------
 
 
-def _hist(v: torch.Tensor, D: int) -> torch.Tensor:
+def _hist(v: torch.Tensor, valid, D: int) -> torch.Tensor:
+    v = v.to(I32)
     if v.device.type == "cuda":
         from pbdagcon_tpu_torch.ops.mxu_cuda import hist_cuda
 
-        return hist_cuda(v.contiguous(), D)
+        return hist_cuda(v.contiguous(), valid, D)
     if v.device.type == "cpu":
-        return hist_reference(v, D)
+        return hist_reference(v, valid, D)
     raise ValueError(f"no histogram for device {v.device}")
 
 
-def _scatter(r: torch.Tensor, payloads, D: int, nbytes: int):
+def _scatter(r: torch.Tensor, valid, payloads, D: int, nbytes: int):
+    r = r.to(I32)
     ps = tuple(p.to(I32) for p in payloads)
     mask = _cut_mask(nbytes)
     if r.device.type == "cuda":
         from pbdagcon_tpu_torch.ops.mxu_cuda import scatter_cuda
 
         return scatter_cuda(
-            r.contiguous(), tuple(p.contiguous() for p in ps), D, mask
+            r.contiguous(), valid, tuple(p.contiguous() for p in ps), D, mask
         )
     if r.device.type == "cpu":
-        return scatter_reference(r, ps, D, mask)
+        return scatter_reference(r, valid, ps, D, mask)
     raise ValueError(f"no scatter for device {r.device}")
 
 
 def mxu_hist(values, valid, D, *, chunk: int = 4096):
     """Counts per value over domain [0, D): [B, N] -> [B, D] int32.
     (`chunk` is the JAX form's tiling and is not used.)"""
-    return _hist(_masked(values, valid), D)
+    return _hist(values, valid, D)
 
 
 def hist_lohi(values, valid, D, *, chunk: int = 4096):
@@ -140,7 +146,7 @@ def mxu_weighted_hist(values, valid, weights, D, *,
     """out[k][b, d] = sum of weights[k][b, n] (cut to the bytes that
     `max_weight` needs) over valid n with values[b, n] == d; values may
     repeat. Returns a tuple of [B, D] int32."""
-    return _scatter(_masked(values, valid), weights, D, _nbytes(max_weight))
+    return _scatter(values, valid, weights, D, _nbytes(max_weight))
 
 
 def mxu_scatter(ranks, valid, payloads, D, *, chunk: int = 4096,
@@ -149,7 +155,7 @@ def mxu_scatter(ranks, valid, payloads, D, *, chunk: int = 4096,
     ranks[b, n]] = payloads[k][b, n] for unique valid ranks (a sum where
     ranks repeat), payloads cut to the bytes `max_payload` needs. Cells
     with no source read 0. Returns a tuple of [B, D] int32."""
-    return _scatter(_masked(ranks, valid), payloads, D, _nbytes(max_payload))
+    return _scatter(ranks, valid, payloads, D, _nbytes(max_payload))
 
 
 def mxu_scatter_presence(ranks, valid, D, *, chunk: int = 4096):

@@ -33,14 +33,14 @@ def _on_card(t: torch.Tensor) -> bool:
 
 def hist_v0(values: torch.Tensor, D: int, nc: int = 2048) -> torch.Tensor:
     """[B, N] int32 -> [B, D] int32 counts by B2 (the build's kernel)."""
-    return mxu._hist(values, D)
+    return mxu._hist(values, None, D)
 
 
 def hist_v1(values: torch.Tensor, D: int, nc: int = 2048) -> torch.Tensor:
     """[B, N] int32 -> [B, D] int32 counts by P1 (tensor cores)."""
     if _on_card(values):
         return pk_cuda.hist_v1_cuda(values.contiguous(), D)
-    return mxu.hist_reference(values, D)
+    return mxu.hist_reference(values, None, D)
 
 
 def hist_v2(values: torch.Tensor, D: int, nc: int = 2048) -> torch.Tensor:
@@ -48,7 +48,7 @@ def hist_v2(values: torch.Tensor, D: int, nc: int = 2048) -> torch.Tensor:
     D <= pk_cuda.MAX_ROW_BINS on the card)."""
     if _on_card(values):
         return pk_cuda.hist_v2_cuda(values.contiguous(), D)
-    return mxu.hist_reference(values, D)
+    return mxu.hist_reference(values, None, D)
 
 
 def pallas_scatter(ranks: torch.Tensor, payloads, D: int, nbytes: int,
@@ -64,4 +64,4 @@ def pallas_scatter(ranks: torch.Tensor, payloads, D: int, nbytes: int,
         return pk_cuda.scatter_tile_cuda(
             ranks.contiguous(), tuple(p.contiguous() for p in ps), D, mask
         )
-    return mxu.scatter_reference(ranks, ps, D, mask)
+    return mxu.scatter_reference(ranks, None, ps, D, mask)

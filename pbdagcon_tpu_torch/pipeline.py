@@ -72,8 +72,10 @@ class PipelineStats:
     dropped_groups: int = 0
     # Why targets took the host DP: "oversize" (n past every V bucket),
     # "long_edges" (more long edges than the K register file holds); on
-    # the devbuild path, "oversize" (past every shape ladder) and the
-    # reasons of `devpipe.FLAG_REASONS`, "ambiguous" and "overflow".
+    # the devbuild path, "oversize" (past every shape ladder), "ins_cap"
+    # (more inserted bases than the window's insertion stream holds,
+    # `devpipe.ins_cap`) and the reasons of `devpipe.FLAG_REASONS`,
+    # "ambiguous" and "overflow".
     fallback_reasons: dict[str, int] = dataclasses.field(default_factory=dict)
     # Host-clock seconds per stage of the native-loader path, summed
     # over batches: "linearize" (producer thread), "pack", "dispatch"

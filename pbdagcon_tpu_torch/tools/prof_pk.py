@@ -129,7 +129,8 @@ def run(dev: torch.device, small: bool = False,
             ("v0 B2 hist_cuda", hist_body(pk.hist_v0)),
             ("v1 P1 tensor-core wgmma", hist_body(pk.hist_v1)),
             ("v2 P2 row in smem", hist_body(pk.hist_v2)),
-            ("plain scatter_add_", hist_body(mxu.hist_reference)),
+            ("plain scatter_add_", hist_body(
+                lambda v, D: mxu.hist_reference(v, None, D))),
         ], put(rng.integers(0, D, (B, N))))
 
     def scatter_body(f, D):
@@ -146,7 +147,8 @@ def run(dev: torch.device, small: bool = False,
                 lambda r, ps, D: mxu.mxu_scatter(
                     r, r >= 0, ps, D, chunk=N, max_payload=1 << 31), D)),
             ("plain scatter_add_ 2xi32", scatter_body(
-                lambda r, ps, D: mxu.scatter_reference(r, ps, D, 0xFFFFFFFF),
+                lambda r, ps, D: mxu.scatter_reference(r, None, ps, D,
+                                                        0xFFFFFFFF),
                 D)),
         ], put(rng.integers(0, 1 << 28, (B, N))), (put(ranks),))
 

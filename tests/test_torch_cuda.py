@@ -166,9 +166,9 @@ def test_hist_kernel_matches_plain_version(card, B, N, D):
     rng = np.random.default_rng(B * 7 + D)
     v = torch.from_numpy(rng.integers(-3, D + 5, (B, N)).astype(np.int32)).to(card)
     before = mxu_cuda.launches["hist"]
-    got = mxu_cuda.hist_cuda(v, D)
+    got = mxu_cuda.hist_cuda(v, None, D)
     assert mxu_cuda.launches["hist"] == before + 1
-    want = mxu.hist_reference(v, D)
+    want = mxu.hist_reference(v, None, D)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
@@ -194,9 +194,9 @@ def test_scatter_kernel_matches_plain_version(card, B, N, D, nbytes, repeat):
     )
     mask = (1 << (8 * nbytes)) - 1
     before = mxu_cuda.launches["scatter"]
-    got = mxu_cuda.scatter_cuda(r, ps, D, mask)
+    got = mxu_cuda.scatter_cuda(r, None, ps, D, mask)
     assert mxu_cuda.launches["scatter"] == before + 1
-    want = mxu.scatter_reference(r, ps, D, mask)
+    want = mxu.scatter_reference(r, None, ps, D, mask)
     torch.cuda.synchronize()
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
@@ -222,13 +222,116 @@ def test_mxu_wrappers_on_card_equal_cpu(card):
 def test_kernel_wrappers_reject_what_they_do_not_take(card):
     v = torch.zeros((3, 10), dtype=torch.int32, device=card)
     with pytest.raises(TypeError):
-        mxu_cuda.hist_cuda(v.long(), 4)
+        mxu_cuda.hist_cuda(v.long(), None, 4)
     with pytest.raises(ValueError):
-        mxu_cuda.hist_cuda(v.t(), 4)
+        mxu_cuda.hist_cuda(v.t(), None, 4)
     with pytest.raises(ValueError):
-        mxu_cuda.scatter_cuda(v, (v,) * 5, 4, 0xFF)
+        mxu_cuda.scatter_cuda(v, None, (v,) * 5, 4, 0xFF)
     with pytest.raises(ValueError):
-        mxu_cuda.scatter_cuda(v, (v[:, :5].contiguous(),), 4, 0xFF)
+        mxu_cuda.scatter_cuda(v, None, (v[:, :5].contiguous(),), 4, 0xFF)
+    with pytest.raises(TypeError):
+        mxu_cuda.hist_cuda(v, v.to(torch.uint8), 4)
+    bad = mxu_cuda.BinPlan("cluster", 2, 4, 256, 16)  # 8 bins < D = 9
+    with pytest.raises(RuntimeError, match="hist launch"):
+        mxu_cuda.hist_cuda(v, None, 9, plan=bad)
+
+
+# (B, N, D, planes, forced cluster size): the planned route of each kind
+# (one CTA per row as in the bench window, short rows too; clusters of
+# 5, 3 and 16 CTAs for the shared memory; global),
+# then clusters forced on small domains, where most adds are remote and a
+# few hot bins take many; N not a multiple of 4 takes the scalar loads.
+ROUTE_CASES = [
+    (129, 100, 8, 1, None), (300, 100, 50, 2, None),
+    (128, 40960, 1026, 1, None), (7, 20000, 245000, 1, None),
+    (128, 6144, 78848, 2, None), (2, 40000, 4000, 4, None),
+    (3, 9000, 929_792, 1, None), (2, 100, 1_000_000, 1, None),
+    (5, 3001, 300, 3, 2), (5, 3000, 300, 1, 4), (3, 40000, 64, 2, 8),
+    (3, 40000, 4000, 1, 16),
+]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("B,N,D,NP,cs", ROUTE_CASES)
+def test_bin_kernels_on_every_route(card, B, N, D, NP, cs, masked):
+    """Histogram and scatter on each route, with and without `valid`,
+    into outputs allocated over garbage (every bin must be written):
+    repeated ranks (every fifth element in the last bin), ranks outside
+    [0, D), over-wide payloads cut to 3 bytes."""
+    rng = np.random.default_rng(B * 13 + N + D + NP)
+    r = rng.integers(-3, D + 5, (B, N)).astype(np.int32)
+    r[:, ::5] = D - 1
+    r = torch.from_numpy(r).to(card)
+    valid = (torch.from_numpy(rng.random((B, N)) < 0.8).to(card)
+             if masked else None)
+    ps = tuple(torch.from_numpy(rng.integers(
+        -(1 << 31), (1 << 31) - 1, (B, N)).astype(np.int32)).to(card)
+        for _ in range(NP))
+    hplan = None if cs is None else mxu_cuda.cluster_plan(N, D, 1, cs)
+    splan = None if cs is None else mxu_cuda.cluster_plan(N, D, NP, cs)
+    if cs is None:
+        assert mxu_cuda.hist_plan(B, N, D).route in mxu_cuda.ROUTES
+    torch.full((NP + 1, B, D), -7, dtype=torch.int32, device=card)  # garbage
+    before = dict(mxu_cuda.launches)
+    got_h = mxu_cuda.hist_cuda(r, valid, D, plan=hplan)
+    got_s = mxu_cuda.scatter_cuda(r, valid, ps, D, 0xFFFFFF, plan=splan)
+    assert mxu_cuda.launches["hist"] == before["hist"] + 1
+    assert mxu_cuda.launches["scatter"] == before["scatter"] + 1
+    want_h = mxu.hist_reference(r, valid, D)
+    want_s = mxu.scatter_reference(r, valid, ps, D, 0xFFFFFF)
+    torch.cuda.synchronize()
+    assert torch.equal(got_h, want_h)
+    assert all(torch.equal(g, w) for g, w in zip(got_s, want_s))
+
+
+def test_bin_kernels_take_broadcast_and_offset_masks(card):
+    """A [B, 1] mask, a non-contiguous one, and rows at an odd offset
+    (no 16-byte loads)."""
+    rng = np.random.default_rng(77)
+    B, N, D = 6, 4096, 3000
+    buf = torch.from_numpy(rng.integers(-2, D + 2, B * N + 1).astype(np.int32)).to(card)
+    r = buf[1:].view(B, N)
+    p = torch.from_numpy(rng.integers(0, 1 << 20, (B, N)).astype(np.int32)).to(card)
+    for valid in (torch.tensor([[True], [False], [True], [True], [False], [True]],
+                               device=card),
+                  (torch.rand((N, B), device=card) < 0.5).t()):
+        assert torch.equal(mxu_cuda.hist_cuda(r, valid, D),
+                           mxu.hist_reference(r, valid, D))
+        (got,) = mxu_cuda.scatter_cuda(r, valid, (p,), D, 0xFFFFF)
+        assert torch.equal(got, mxu.scatter_reference(r, valid, (p,), D,
+                                                      0xFFFFF)[0])
+
+
+def test_bin_kernels_capture_in_a_graph_without_memsets(card):
+    """One kernel node per call, no memset node; replays agree."""
+    from pbdagcon_tpu_torch.tools.cuda_graph import node_counts
+
+    rng = np.random.default_rng(3)
+    B, N = 128, 6144
+    r = torch.from_numpy(rng.integers(-1, 8300, (B, N)).astype(np.int32)).to(card)
+    valid = r % 3 != 0
+    p = (r * 5, r + 11)
+
+    def calls():
+        return (mxu_cuda.hist_cuda(r, valid, 8208),
+                *mxu_cuda.scatter_cuda(r, valid, p, 14364, 0xFFFFFFFF),
+                mxu_cuda.hist_cuda(r[:, :64].contiguous(), None, 2052))
+
+    calls()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        outs = calls()
+    counts = node_counts(g.raw_cuda_graph())
+    g.replay()
+    torch.cuda.synchronize()
+    want = (mxu.hist_reference(r, valid, 8208),
+            *mxu.scatter_reference(r, valid, p, 14364, 0xFFFFFFFF),
+            mxu.hist_reference(r[:, :64], None, 2052))
+    assert all(torch.equal(a, b) for a, b in zip(outs, want))
+    assert counts.get("memset", 0) == 0
+    # the slice's .contiguous() copy is one more kernel
+    assert counts["kernel"] == 4
 
 
 # The kernel-variant microbench's kernels (P1-P3). (B, N, D): B not a
@@ -258,7 +361,7 @@ def test_pk_hist_kernels_match_plain_version(card, name, B, N, D):
     before = pk_cuda.launches[name]
     got = getattr(pk_cuda, f"{name}_cuda")(v, D)
     assert pk_cuda.launches[name] == before + 1
-    want = mxu.hist_reference(v, D)
+    want = mxu.hist_reference(v, None, D)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
@@ -279,7 +382,7 @@ def test_pk_hist_v1_counts_past_int8_in_one_bin(card, N, D, aligned):
     got = pk_cuda.hist_v1_cuda(flat.view(4, N), D)
     torch.cuda.synchronize()
     assert int(got[0, D - 1]) == N and int(got[1, 0]) == N
-    assert torch.equal(got.cpu(), mxu.hist_reference(torch.from_numpy(v), D))
+    assert torch.equal(got.cpu(), mxu.hist_reference(torch.from_numpy(v), None, D))
 
 
 def test_pk_hist_wgmma_entry_refuses_bad_plans(card):
@@ -306,7 +409,7 @@ def test_pk_hist_v1_past_the_shared_memory_limit(card):
     rng = np.random.default_rng(3)
     v = torch.from_numpy(rng.integers(-3, 245005, (7, 20000)).astype(np.int32))
     got = pk.hist_v1(v.to(card), 245000)
-    assert torch.equal(got.cpu(), mxu.hist_reference(v, 245000))
+    assert torch.equal(got.cpu(), mxu.hist_reference(v, None, 245000))
 
 
 # (B, N, D, nbytes, NP, repeat): D past one shared-memory tile at every
@@ -341,7 +444,7 @@ def test_pk_scatter_kernel_matches_plain_version(card, B, N, D, nbytes, NP,
     before = pk_cuda.launches["pallas_scatter"]
     got = pk_cuda.scatter_tile_cuda(r, ps, D, mask)
     assert pk_cuda.launches["pallas_scatter"] == before + 1
-    want = mxu.scatter_reference(r, ps, D, mask)
+    want = mxu.scatter_reference(r, None, ps, D, mask)
     torch.cuda.synchronize()
     assert len(got) == NP and all(torch.equal(g, w) for g, w in zip(got, want))
 

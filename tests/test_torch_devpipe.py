@@ -4,6 +4,7 @@ on the cases of tests/test_devpipe.py, through the pure-Python and the
 native streaming entries, and the caps choice equal to the JAX
 package's. The same path on the card is in tests/test_torch_cuda.py."""
 
+import functools
 import io
 import random
 
@@ -12,7 +13,9 @@ import pytest
 
 from pbdagcon_tpu import devpipe as jdevpipe
 from pbdagcon_tpu import native
+from pbdagcon_tpu.config import DagconConfig as JaxConfig
 from pbdagcon_tpu.io import FastaWriter
+from pbdagcon_tpu.pipeline import run_stream as jax_run_stream
 from pbdagcon_tpu.simulate import (
     NoiseProfile,
     simulate_targets,
@@ -193,3 +196,54 @@ def test_devbuild_golden_files(golden, use_native):
     got, stats = _run(text, "devbuild", use_native=use_native, **kw)
     assert got == open(os.path.join(data, golden + ".fa")).read()
     assert stats.batches >= 1
+
+
+# A gap-heavy pileup whose six targets have 687-853 inserted bases; an
+# insertion-stream cap of 750 sends four of them to the host before the
+# device ("ins_cap"), and the other two through the device build.
+INS_CAP = 750
+
+
+@functools.lru_cache(maxsize=None)
+def _ins_cap_text() -> str:
+    rng = random.Random(31337)
+    return "\n".join(
+        to_m5(a, flip=rng.random() < 0.3)
+        for _t, _b, alns in simulate_targets(
+            77, 6, 300, 12, NoiseProfile(sub=0.03, ins=0.15, dele=0.06))
+        for a in alns
+    ) + "\n"
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ins_cap_fallbacks() -> int:
+    """host_fallbacks of the JAX package's devbuild path under the same
+    cap (it counts no reasons)."""
+    real = jdevpipe.ins_cap
+    jdevpipe.ins_cap = lambda caps: INS_CAP
+    try:
+        stats = jax_run_stream(
+            io.StringIO(_ins_cap_text()), FastaWriter(io.StringIO()),
+            JaxConfig(backend="devbuild", min_weight=3, min_length=50),
+        )
+    finally:
+        jdevpipe.ins_cap = real
+    return stats.host_fallbacks
+
+
+@pytest.mark.parametrize("use_native", [True, False])
+def test_devbuild_ins_cap_fallbacks_have_their_own_reason(use_native,
+                                                         monkeypatch):
+    """Targets past the insertion-stream cap count as "ins_cap", not
+    "oversize"; the total and the FASTA are those of the host path and
+    the JAX package's total."""
+    _skip_without_native(use_native)
+    text = _ins_cap_text()
+    kw = dict(min_weight=3, min_length=50, use_native=use_native)
+    host, _ = _run(text, "host", **kw)
+    monkeypatch.setattr(devpipe, "ins_cap", lambda caps: INS_CAP)
+    dev, stats = _run(text, "devbuild", **kw)
+    assert dev == host
+    assert stats.fallback_reasons == {"ins_cap": 4}
+    assert stats.host_fallbacks == 4 == _jax_ins_cap_fallbacks()
+    assert stats.batches >= 1  # the other two went through the device

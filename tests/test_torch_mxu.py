@@ -57,7 +57,7 @@ def test_hist_reference_matches_numpy():
     want = np.stack([
         np.bincount(r[(r >= 0) & (r < 64)], minlength=64) for r in v
     ])
-    _eq(mxu.hist_reference(_t(v), 64), want)
+    _eq(mxu.hist_reference(_t(v), None, 64), want)
 
 
 @pytest.mark.parametrize("max_payload", [1 << 8, 1 << 16, 1 << 24, 1 << 31])
@@ -201,6 +201,6 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
     v = torch.zeros((2, 3), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        mxu_cuda.hist_cuda(v, 4)
+        mxu_cuda.hist_cuda(v, None, 4)
     with pytest.raises(ValueError, match="CUDA"):
-        mxu_cuda.scatter_cuda(v, (v,), 4, 0xFF)
+        mxu_cuda.scatter_cuda(v, None, (v,), 4, 0xFF)
