@@ -41,8 +41,11 @@ Phases, in order; any failure exits non-zero before the last line:
    window's DP call, captured too, is held bitwise and timed.
 4b. The kernel-variant microbench's kernels P1-P3 (`hist_v1`, `hist_v2`,
    `pallas_scatter`) against their plain versions, integer-equal: random
-   cases, the microbench's shapes and every hist/scatter call of the
-   bench window from phase 4 (each where the kernel takes the shape),
+   cases, every route of P2 and P3 (P3 in one tile and in 3 to 6 tiles,
+   1 to 4 payloads; P2 staged and on the ring; every N mod 4, rows on
+   and off a 16-byte boundary), the microbench's shapes and every
+   hist/scatter call of the bench window from phase 4 (each where the
+   kernel takes the shape),
    timed per window beside B2/B3 and the plain versions (the window's
    calls replayed from a CUDA graph: device time); then the
    microbench itself (`pbdagcon_tpu_torch.tools.prof_pk`) once at full
@@ -206,7 +209,7 @@ def main() -> int:
     for name in KERNEL_SOURCES:
         for line in _build.build_logs.get(name, "").splitlines():
             if any(w in line for w in ("registers", "spill", "error",
-                                       "wgmma", "Performance")):
+                                       "wgmma", "Performance", "entry")):
                 log(f"  ptxas {name}: {line.strip()}")
 
     # ---- phase 2: DP kernel vs plain version, bitwise ----
@@ -659,6 +662,55 @@ def main() -> int:
         hold_scatter(torch.from_numpy(r.astype(np.int32)).to(dev), ps, D,
                      (1 << (8 * nb)) - 1, what)
         log(f"pallas_scatter {what}: equal")
+    # Every route of P2 and P3, on rows that start on and off a 16-byte
+    # boundary (each array's allocation offset by 0-3 values; odd rows
+    # off by N mod 4 more): P3 in one tile and in 3 to 6 tiles (a CTA
+    # each) with 1 to 4 payloads, every N mod 4, payload rows misaligned
+    # unlike the ranks'; P2 staged and on the ring (rows past one CTA's
+    # shared memory). Each launch counts under the JAX tool's name.
+    def offset_rows(a, off):
+        flat = torch.empty(a.size + off, dtype=torch.int32, device=dev)
+        flat[off:] = torch.from_numpy(a.reshape(-1)).to(dev)
+        return flat[off:].view(a.shape)
+
+    for B, N, D, NP, offs in (
+            (5, 3000, 300, 1, (0, 0)), (3, 3001, 60001, 2, (1, 1, 1)),
+            (4, 2042, 40003, 3, (2, 2, 2, 2)),
+            (3, 4099, 50000, 4, (3, 3, 3, 3, 3)),
+            (5, 1500, 80, 2, (0, 1, 3)), (7, 1021, 41, 1, (3, 0)),
+            (2, 20000, 4000, 2, (0, 0, 0)),
+            (3, 5003, 1000, 4, (1, 2, 3, 0, 1)),
+            (128, 6144, 14364, 2, (1, 1, 1)),
+            (2, 3000, 250_000, 1, (1, 2))):
+        r = rng.integers(-3, D + 5, (B, N)).astype(np.int32)
+        r[:, ::5] = D - 1
+        ranks = offset_rows(r, offs[0])
+        ps = tuple(offset_rows(rng.integers(
+            -(1 << 31), (1 << 31) - 1, (B, N)).astype(np.int32), offs[1 + k])
+            for k in range(NP))
+        plan = pk_cuda.tile_plan(N, D, NP)
+        before = pk_cuda.launches["pallas_scatter"]
+        what = f"B={B} N={N} D={D} NP={NP} offsets={offs} [{plan.describe()}]"
+        hold("pallas_scatter", list(zip(
+            pk_cuda.scatter_tile_cuda(ranks, ps, D, 0xFFFFFF),
+            mxu.scatter_reference(ranks, None, ps, D, 0xFFFFFF))), what)
+        if pk_cuda.launches["pallas_scatter"] != before + 1:
+            raise SystemExit(f"chip_smoke: pallas_scatter launch not counted ({what})")
+        log(f"pallas_scatter route {what}: equal")
+    for N, D, off in ((9000, 700, 0), (9001, 700, 1), (8186, 33, 2),
+                      (4095, 1026, 3), (41000, 15000, 1), (70001, 9234, 1),
+                      (100_000, 48 * 1024, 2)):
+        v = rng.integers(-3, D + 300, (3, N)).astype(np.int32)
+        v[0] = D - 1
+        values = offset_rows(v, off)
+        plan = pk_cuda.hist_row_plan(N, D)
+        before = pk_cuda.launches["hist_v2"]
+        what = f"N={N} D={D} offset={off} [{plan.describe()}]"
+        hold("hist_v2", [(pk_cuda.hist_v2_cuda(values, D),
+                          mxu.hist_reference(values, None, D))], what)
+        if pk_cuda.launches["hist_v2"] != before + 1:
+            raise SystemExit(f"chip_smoke: hist_v2 launch not counted ({what})")
+        log(f"hist_v2 route {what}: equal")
     for values, _valid, D in calls["hist"]:
         hold_hist(values, D, "a bench window call")
     for ranks, _valid, payloads, D, mask in calls["scatter"]:
@@ -695,9 +747,13 @@ def main() -> int:
             + ", ".join(f"{k} {v[0]} / {v[1]}" for k, v in ms.items())
             + f" [{card}]")
         for c in cs:  # one reading per call and design
-            log(f"  {op} B, N, D = {call_shape(op, c)[:3]}: device ms " + ", ".join(
-                f"{k} {graph_ms(lambda f=f, c=c: f(*c), 10, copies=20):.4f}"
-                for k, f in fns.items()))
+            B_, N_, D_, NP_ = call_shape(op, c)
+            plan = (pk_cuda.hist_row_plan(N_, D_) if op == "hist"
+                    else pk_cuda.tile_plan(N_, D_, NP_))
+            log(f"  {op} B, N, D = {(B_, N_, D_)} [P2/P3 {plan.describe()}]: "
+                f"device ms " + ", ".join(
+                    f"{k} {graph_ms(lambda f=f, c=c: f(*c), 10, copies=20):.4f}"
+                    for k, f in fns.items()))
 
     # The microbench at full size: the variants' own main path.
     for k in pk_cuda.launches:

@@ -41,22 +41,49 @@
 //   blocks each re-read and re-split the whole row, rebuilt both
 //   fragments per 8-wide tile with emulated byte compares, and at 8 warps
 //   did not hide its loads: it was slower than the plain version.
-// - hist_row_kernel replaces `tools/prof_pk.py::hist_v2` (P2): one block
-//   holds a row's whole histogram in shared memory (up to kMaxRowBins
-//   bins), streams the row through a double-buffered cp.async stage,
-//   counts with shared atomics and writes the row once, coalesced. No
-//   global atomics, and the output needs no zero fill (B2 splits a row
-//   over blocks and adds their bins into a zeroed output with global
-//   atomics). Bound: one SM's shared-atomic rate per row, so B rows fill
-//   at most B SMs.
-// - scatter_tile_kernel replaces `tools/prof_pk.py::pallas_scatter` (P3):
-//   grid (D tile, row). A block holds NP x T int32 accumulators of its
-//   tile in shared memory, re-reads the row's ranks, adds the cut
-//   payloads of the ranks in its tile with shared atomics (uint32, which
-//   wrap like int32), and writes its tile out coalesced. No global
-//   atomics and no zero fill (B3 adds into a zeroed output with global
-//   atomics). Bound: re-reading the ranks once per tile and writing the
-//   output once.
+// - hist_row_kernel replaces `tools/prof_pk.py::hist_v2` (P2), whose idea
+//   is the row relaid on chip at once. One CTA per row holds the row's
+//   whole histogram in shared memory (up to kMaxRowBins bins) and the row
+//   itself beside it: a producer warp issues TMA bulk copies
+//   (`cp.async.bulk`) of the whole row at the start, in pieces of
+//   kRowChunk values (15.5 KB), each completing on its own mbarrier. 992
+//   consumer threads zero the bins while the pieces fly, then count each
+//   piece as it lands (16-byte shared loads, one shared atomic a value)
+//   with no block barrier per piece, and write the bins out once with
+//   16-byte stores. Where the row and the bins outgrow a CTA's 227 KB, the
+//   same pieces go round a ring of slots with empty mbarriers (the "ring"
+//   route, chosen by shape). Bound: the row's bytes from device memory and
+//   one SM's shared-atomic rate per row; at the bench window's sizes a
+//   launch's fixed cost (~2.4 us, measured on B2) weighs as much. Adds of
+//   one value by lanes of one warp are rare on the bench rows: replicated
+//   bins and warp-aggregated adds (`__match_any_sync`) both measured no
+//   faster than plain atomics on the card (PERF.md), so neither is kept.
+// - scatter_tile_kernel replaces `tools/prof_pk.py::pallas_scatter` (P3),
+//   whose idea is a grid over D tiles, each tile re-reading the row. One
+//   CTA per (D tile, row) holds NP planes of its tile's accumulators in
+//   shared memory, the tiles as wide as one CTA's 227 KB holds beside a
+//   ring of 4 stages, so a row takes the fewest tiles. Its producer thread
+//   keeps TMA bulk copies of the row's ranks and payloads in flight into
+//   the ring of chunk slots (a full and an empty mbarrier a stage). Two
+//   groups of 256 consumer threads take alternate chunks, one 16-byte quad
+//   a thread, keep the ranks in their tile and add the cut payloads with
+//   shared atomics (uint32, which wrap like int32), then release the stage
+//   (one arrival a warp of the group). The zeroing overlaps the first
+//   loads and the write-out is coalesced 16-byte stores. No global atomics
+//   and no zero fill. Bound: the row read once per tile (from L2 after the
+//   first: a call's inputs were just written) and the outputs written
+//   once. Tiles that form a cluster fed by one multicast load, and
+//   narrower tiles with two CTAs to an SM, both measured slower on the
+//   card (PERF.md).
+//
+// P2 and P3 stage rows by one piece plan (`row_pieces`, mirrored by
+// ops/pk_cuda.py::row_pieces). A bulk copy needs 16-byte-aligned global
+// and shared addresses and a multiple of 16 bytes, and a row of int32
+// starts on any 4-byte boundary (row b of [B, N] at b * N values). The
+// bulk copies take the row's aligned middle, in chunks that land at the
+// start of their slots; the < 4 values before it and the < 4 after it
+// are read by consumer threads with plain loads while the first chunks
+// fly.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,13 +105,22 @@ constexpr int kSets = 2;
 constexpr int kMaxHiTile = 240;
 static_assert(kGroup * 32 == kConsumers && (kChunk / 32) % kGroup == 0,
               "a consumer thread owns one column of a group");
-constexpr int kRowThreads = 1024;
-// The shared-memory histogram of hist_row: 48K int32 bins (192 KB), plus
-// two stage buffers of kStage values (32 KB), within the 227 KB a block
-// may use.
+// P2 and P3 (mirrored by ops/pk_cuda.py). P3: two groups of 256 consumer
+// threads, taking alternate chunks, and a producer warp; chunks of
+// kTileChunk values (256 quads, one per thread of a group); a ring of 2 to
+// 8 stages. P2: 992 consumer threads and a producer warp; pieces of
+// kRowChunk values (one quad per consumer).
+constexpr int kTileGroup = 256;
+constexpr int kTileGroups = 2;
+constexpr int kTileConsumers = kTileGroups * kTileGroup;
+constexpr int kTileThreads = kTileConsumers + 32;
+constexpr int kTileChunk = 4 * kTileGroup;
+constexpr int kMinStages = 2;
+constexpr int kMaxStages = 8;
+constexpr int kRowConsumers = 992;
+constexpr int kRowThreads = kRowConsumers + 32;
+constexpr int kRowChunk = 4 * kRowConsumers;
 constexpr int kMaxRowBins = 48 * 1024;
-constexpr int kStage = 4096;
-constexpr int kScatterThreads = 512;
 constexpr int kMaxPayloads = 4;
 constexpr int kMaxSmemBytes = 232448;
 // N and D up to 2^30 keep every index and offset below in int.
@@ -102,15 +138,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(gmem)
                : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -498,97 +525,347 @@ int launch_hist_wgmma(const int32_t* values, int32_t* out, int B, int N,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Copy `len` values from `src` into shared `dst` as one cp.async group:
-// 16-byte copies when `vec` (src 16-byte aligned, len a multiple of 4).
-__device__ __forceinline__ void stage_values(int32_t* dst,
-                                             const int32_t* src, int len,
-                                             bool vec) {
-  if (vec) {
-    for (int i = 4 * threadIdx.x; i < len; i += 4 * blockDim.x) {
-      cp_async16(dst + i, src + i);
-    }
-  } else {
-    for (int i = threadIdx.x; i < len; i += blockDim.x) {
-      cp_async4(dst + i, src + i);
-    }
-  }
-  cp_async_commit();
+// ---- P2 and P3: rows staged by TMA bulk copies ----
+
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
+                                                   uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
 }
 
-// Grid (B). Shared memory: bins [bins_pad] then two stage buffers.
-__global__ void __launch_bounds__(kRowThreads)
-    hist_row_kernel(const int32_t* __restrict__ values,
-                    int32_t* __restrict__ out, int N, int D, int bins_pad,
-                    bool vec) {
-  extern __shared__ __align__(16) int32_t smem[];
-  int32_t* bins = smem;
-  int32_t* stage = smem + bins_pad;
-  const int32_t* row = values + static_cast<size_t>(blockIdx.x) * N;
-  const int nchunks = (N + kStage - 1) / kStage;
-  if (nchunks > 0) stage_values(stage, row, min(kStage, N), vec);
-  for (int d = threadIdx.x; d < D; d += blockDim.x) bins[d] = 0;
-  for (int c = 0; c < nchunks; ++c) {
-    if (c + 1 < nchunks) {
-      const int next = (c + 1) * kStage;
-      stage_values(stage + ((c + 1) & 1) * kStage, row + next,
-                   min(kStage, N - next), vec);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int32_t* buf = stage + (c & 1) * kStage;
-    const int len = min(kStage, N - c * kStage);
-    for (int i = threadIdx.x; i < len; i += blockDim.x) {
-      const int32_t v = buf[i];
-      if (v >= 0 && v < D) atomicAdd(&bins[v], 1);
-    }
-    // The next iteration stages into the buffer just read.
-    __syncthreads();
-  }
-  __syncthreads();
-  int32_t* orow = out + static_cast<size_t>(blockIdx.x) * D;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) orow[d] = bins[d];
+// One bulk copy (TMA) of `bytes` (a multiple of 16; both addresses
+// 16-byte aligned) from global into this CTA's shared memory, completing
+// on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
-struct Payloads {
-  const int32_t* p[kMaxPayloads];
-  int32_t* out[kMaxPayloads];
+// As mbar_wait, but a wait past 2^34 cycles (~10 s) traps: a fault in the
+// barrier protocol fails the launch with an error instead of hanging.
+__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1LL << 34)) __trap();
+  } while (!done);
+}
+
+// Named barrier 1 over the first n threads of the CTA (the consumers).
+__device__ __forceinline__ void named_sync(int n) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
+}
+
+__device__ __forceinline__ int misalign(const void* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// The piece plan of a row of N values at `row`: the bulk copies take its
+// 16-byte-aligned middle [head, head + nb) (nb a multiple of 4), in chunks
+// that land at the start of their slots; the head [0, head) and the tail
+// [head + nb, N) hold < 4 values each and are read with plain loads.
+struct RowPieces {
+  int head, nb;
 };
 
-// Grid (ceil(D / T), B). Shared memory: NP planes of T accumulators.
-__global__ void __launch_bounds__(kScatterThreads)
-    scatter_tile_kernel(const int32_t* __restrict__ ranks, Payloads pl,
-                        int NP, int N, int D, int T, uint32_t cut_mask) {
-  extern __shared__ uint32_t acc[];
-  const int lo = blockIdx.x * T;
-  const int width = min(T, D - lo);
-  for (int i = threadIdx.x; i < NP * T; i += blockDim.x) acc[i] = 0;
-  __syncthreads();
-  const size_t base = static_cast<size_t>(blockIdx.y) * N;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    const int32_t r = ranks[base + n];
-    if (r < lo || r >= lo + width) continue;
-    const int o = r - lo;
-#pragma unroll
-    for (int k = 0; k < kMaxPayloads; ++k) {
-      if (k < NP) {
-        atomicAdd(&acc[k * T + o],
-                  static_cast<uint32_t>(pl.p[k][base + n]) & cut_mask);
-      }
+__device__ __forceinline__ RowPieces row_pieces(const int32_t* row, int N) {
+  RowPieces p;
+  p.head = min((4 - misalign(row)) & 3, N);
+  p.nb = (N - p.head) & ~3;
+  return p;
+}
+
+// Index j < N of edge value `t` (0-7) of a row: t < 4 the head's, t >= 4
+// the tail's; -1 where the row has none.
+__device__ __forceinline__ int edge_index(const RowPieces& p, int N, int t) {
+  const int j = t < 4 ? (t < p.head ? t : -1) : p.head + p.nb + t - 4;
+  return t < 8 && j < N ? j : -1;
+}
+
+// Words of the staged route's slots: piece c at c * kRowChunk, the middle
+// of any row at most N & ~3 values.
+__host__ __device__ __forceinline__ int staged_words(int N) { return N & ~3; }
+
+__host__ __device__ __forceinline__ int row_plane(int D) {
+  return (D + 3) / 4 * 4 + 4;
+}
+
+struct RowArgs {
+  const int32_t* values;
+  int32_t* out;
+  int N, D, slots;
+};
+
+// P2. Grid (B); threads: kRowConsumers consumers, then the producer warp.
+// Dynamic shared memory: the slots (staged: one per piece; ring: `slots`
+// of kRowChunk words), the bins (row_plane(D) words), then the full and
+// the empty mbarriers of each slot.
+__global__ void __launch_bounds__(kRowThreads)
+    hist_row_kernel(const RowArgs a) {
+  extern __shared__ __align__(16) int32_t row_smem[];
+  const bool ring = a.slots < (a.N + kRowChunk - 1) / kRowChunk;
+  uint32_t* bins = reinterpret_cast<uint32_t*>(
+      row_smem + (ring ? a.slots * kRowChunk : staged_words(a.N)));
+  uint64_t* full = reinterpret_cast<uint64_t*>(bins + row_plane(a.D));
+  uint64_t* empty = full + a.slots;
+  const int32_t* row = a.values + static_cast<size_t>(blockIdx.x) * a.N;
+  int32_t* orow = a.out + static_cast<size_t>(blockIdx.x) * a.D;
+  const RowPieces rp = row_pieces(row, a.N);
+  const int nchunks = (rp.nb + kRowChunk - 1) / kRowChunk;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < a.slots; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kRowConsumers / 32);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const size_t obase = static_cast<size_t>(blockIdx.y) * D + lo;
-#pragma unroll
-  for (int k = 0; k < kMaxPayloads; ++k) {
-    if (k < NP) {
-      int32_t* orow = pl.out[k] + obase;
-      for (int d = threadIdx.x; d < width; d += blockDim.x) {
-        orow[d] = static_cast<int32_t>(acc[k * T + d]);
-      }
+
+  if (threadIdx.x >= kRowConsumers) {
+    // The producer: every piece of the middle at once (staged), or piece
+    // c into slot c % slots once the consumers have released it (ring).
+    if (threadIdx.x > kRowConsumers) return;
+    for (int c = 0; c < nchunks; ++c) {
+      const int st = c % a.slots;
+      if (c >= a.slots) mbar_wait_bounded(&empty[st], (c / a.slots - 1) & 1);
+      const uint32_t bytes =
+          static_cast<uint32_t>(min(kRowChunk, rp.nb - c * kRowChunk)) * 4;
+      mbar_arrive_expect(&full[st], bytes);
+      bulk_load(row_smem + st * kRowChunk, row + rp.head + c * kRowChunk, bytes,
+                &full[st]);
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x;
+  // Bin d at pad + d, so that the write-out's 16-byte stores read
+  // 16-byte-aligned shared words.
+  const int pad = misalign(orow);
+  uint4* bins4 = reinterpret_cast<uint4*>(bins);
+  for (int i = tid; i < row_plane(a.D) / 4; i += kRowConsumers)
+    bins4[i] = make_uint4(0u, 0u, 0u, 0u);
+  named_sync(kRowConsumers);
+  uint32_t* s0 = bins + pad;
+  const unsigned D = static_cast<unsigned>(a.D);
+  if (tid < 32) {  // the head and the tail, while the pieces fly
+    const int j = edge_index(rp, a.N, tid);
+    const int v = j >= 0 ? __ldg(row + j) : -1;
+    if (static_cast<unsigned>(v) < D) atomicAdd(s0 + v, 1u);
+  }
+  for (int c = 0; c < nchunks; ++c) {
+    const int st = c % a.slots;
+    const int nq = min(kRowChunk, rp.nb - c * kRowChunk) / 4;
+    const int4* slot = reinterpret_cast<const int4*>(row_smem + st * kRowChunk);
+    mbar_wait_bounded(&full[st], (c / a.slots) & 1);
+    if (tid < nq) {  // quad tid of the piece
+      const int4 v = slot[tid];
+      if (static_cast<unsigned>(v.x) < D) atomicAdd(s0 + v.x, 1u);
+      if (static_cast<unsigned>(v.y) < D) atomicAdd(s0 + v.y, 1u);
+      if (static_cast<unsigned>(v.z) < D) atomicAdd(s0 + v.z, 1u);
+      if (static_cast<unsigned>(v.w) < D) atomicAdd(s0 + v.w, 1u);
+    }
+    if (ring) {
+      __syncwarp();
+      if ((tid & 31) == 0) mbar_arrive(&empty[st]);
     }
   }
+  named_sync(kRowConsumers);
+  const int head = min((4 - pad) & 3, a.D);
+  if (tid < head) orow[tid] = static_cast<int32_t>(s0[tid]);
+  const int nq = (a.D - head) / 4;
+  for (int q = tid; q < nq; q += kRowConsumers)
+    *reinterpret_cast<uint4*>(orow + head + 4 * q) =
+        *reinterpret_cast<const uint4*>(s0 + head + 4 * q);
+  for (int d = head + 4 * nq + tid; d < a.D; d += kRowConsumers)
+    orow[d] = static_cast<int32_t>(s0[d]);
+}
+
+struct TileArgs {
+  const int32_t* src[1 + kMaxPayloads];  // ranks, then the payloads
+  int32_t* out[kMaxPayloads];
+  int N, D, bins, stages;
+  uint32_t cut;
+};
+
+// Add head or tail value j of the row, read from global memory, into the
+// tile's accumulators.
+template <int NP>
+__device__ __forceinline__ void add_from_global(const TileArgs& a, size_t base,
+                                                int j, int lo, unsigned width,
+                                                uint32_t* acc, int plane,
+                                                const int (&pad)[NP]) {
+  const unsigned o = static_cast<unsigned>(__ldg(a.src[0] + base + j)) -
+                     static_cast<unsigned>(lo);
+  if (o >= width) return;
+#pragma unroll
+  for (int k = 0; k < NP; ++k)
+    atomicAdd(acc + k * plane + pad[k] + o,
+              static_cast<uint32_t>(__ldg(a.src[1 + k] + base + j)) & a.cut);
+}
+
+// P3. Grid (tiles, B); threads: kTileConsumers consumers, then the
+// producer warp. Dynamic shared memory: the ring (`stages` stages of 1 +
+// NP slots of kTileChunk words: ranks, then each payload), NP planes of
+// bins + 4 accumulators, then the full and the empty mbarriers of each
+// stage. Tile t owns bins [t * bins, (t + 1) * bins) of the row (none
+// past D). The producer refills a stage once the group that took its
+// last chunk has released it. A payload whose rows sit at another
+// 16-byte offset than the ranks' is not staged: the consumers read it
+// from global memory. Registers for two CTAs an SM, which tiles of a
+// small D leave the shared memory for.
+template <int NP>
+__global__ void __launch_bounds__(kTileThreads, 2)
+    scatter_tile_kernel(const TileArgs a) {
+  constexpr int kArrays = 1 + NP;
+  extern __shared__ __align__(16) int32_t tile_smem[];
+  uint32_t* acc = reinterpret_cast<uint32_t*>(tile_smem + a.stages * kArrays * kTileChunk);
+  const int plane = a.bins + 4;
+  uint64_t* full = reinterpret_cast<uint64_t*>(acc + NP * plane);
+  uint64_t* empty = full + a.stages;
+  const int b = blockIdx.y;
+  const int lo = blockIdx.x * a.bins;
+  const unsigned width = static_cast<unsigned>(max(0, min(a.bins, a.D - lo)));
+  const size_t base = static_cast<size_t>(b) * a.N;
+  const RowPieces rp = row_pieces(a.src[0] + base, a.N);
+  const int nchunks = (rp.nb + kTileChunk - 1) / kTileChunk;
+  bool staged[kArrays];
+#pragma unroll
+  for (int k = 0; k < kArrays; ++k)
+    staged[k] = misalign(a.src[k] + base) == misalign(a.src[0] + base);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < a.stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kTileGroup / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x == kTileConsumers) {
+    for (int c = 0; c < nchunks; ++c) {
+      const int st = c % a.stages;
+      if (c >= a.stages) mbar_wait_bounded(&empty[st], (c / a.stages - 1) & 1);
+      const int s = rp.head + c * kTileChunk;
+      const uint32_t bytes =
+          static_cast<uint32_t>(min(kTileChunk, rp.nb - c * kTileChunk)) * 4;
+      uint32_t tx = 0;
+#pragma unroll
+      for (int k = 0; k < kArrays; ++k) tx += staged[k] ? bytes : 0;
+      mbar_arrive_expect(&full[st], tx);
+#pragma unroll
+      for (int k = 0; k < kArrays; ++k) {
+        if (staged[k])
+          bulk_load(tile_smem + (st * kArrays + k) * kTileChunk,
+                    a.src[k] + base + s, bytes, &full[st]);
+      }
+    }
+  } else if (threadIdx.x < kTileConsumers) {
+    const int tid = threadIdx.x;
+    // Accumulator i of plane k at k * plane + pad[k] + i, so that the
+    // write-out's 16-byte stores read 16-byte-aligned shared words.
+    int pad[NP];
+#pragma unroll
+    for (int k = 0; k < NP; ++k)
+      pad[k] = misalign(a.out[k] + static_cast<size_t>(b) * a.D + lo);
+    uint4* acc4 = reinterpret_cast<uint4*>(acc);
+    for (int i = tid; i < NP * plane / 4; i += kTileConsumers)
+      acc4[i] = make_uint4(0u, 0u, 0u, 0u);
+    named_sync(kTileConsumers);
+    {  // the head and the tail, while the first chunks fly
+      const int j = edge_index(rp, a.N, tid);
+      if (j >= 0) add_from_global<NP>(a, base, j, lo, width, acc, plane, pad);
+    }
+    // Group g takes chunks g, g + kTileGroups, ...; thread gt of it quad gt.
+    const int gt = tid % kTileGroup;
+    for (int c = tid / kTileGroup; c < nchunks; c += kTileGroups) {
+      const int st = c % a.stages;
+      const int nq = min(kTileChunk, rp.nb - c * kTileChunk) / 4;
+      const int4* slots = reinterpret_cast<const int4*>(
+          tile_smem + st * kArrays * kTileChunk);
+      mbar_wait_bounded(&full[st], (c / a.stages) & 1);
+      if (gt < nq) {
+        const int n = rp.head + c * kTileChunk + 4 * gt;  // value of lane .x
+        const int4 rq = slots[gt];
+        const int32_t rv[4] = {rq.x, rq.y, rq.z, rq.w};
+        uint32_t pv[NP][4];
+#pragma unroll
+        for (int k = 0; k < NP; ++k) {
+          if (staged[1 + k]) {
+            const int4 q = slots[(1 + k) * (kTileChunk / 4) + gt];
+            pv[k][0] = q.x;
+            pv[k][1] = q.y;
+            pv[k][2] = q.z;
+            pv[k][3] = q.w;
+          } else {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) pv[k][i] = __ldg(a.src[1 + k] + base + n + i);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const unsigned o = static_cast<unsigned>(rv[i]) - static_cast<unsigned>(lo);
+          if (o >= width) continue;
+#pragma unroll
+          for (int k = 0; k < NP; ++k)
+            atomicAdd(acc + k * plane + pad[k] + o, pv[k][i] & a.cut);
+        }
+      }
+      __syncwarp();
+      if ((tid & 31) == 0) mbar_arrive(&empty[st]);
+    }
+    named_sync(kTileConsumers);
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      int32_t* o = a.out[k] + static_cast<size_t>(b) * a.D + lo;
+      const uint32_t* s0 = acc + k * plane + pad[k];
+      const int w = static_cast<int>(width);
+      const int head = min((4 - pad[k]) & 3, w);
+      if (tid < head) o[tid] = static_cast<int32_t>(s0[tid]);
+      const int nq = (w - head) / 4;
+      for (int q = tid; q < nq; q += kTileConsumers)
+        *reinterpret_cast<uint4*>(o + head + 4 * q) =
+            *reinterpret_cast<const uint4*>(s0 + head + 4 * q);
+      for (int d = head + 4 * nq + tid; d < w; d += kTileConsumers)
+        o[d] = static_cast<int32_t>(s0[d]);
+    }
+  }
+}
+
+long long tile_smem_bytes(int NP, int bins, int stages) {
+  return 4LL * stages * (1 + NP) * kTileChunk + 4LL * NP * (bins + 4) +
+         2LL * stages * sizeof(uint64_t);
+}
+
+long long row_smem_bytes(int N, int D, int slots) {
+  const int pieces = (N + kRowChunk - 1) / kRowChunk;
+  const long long words = slots < pieces ? 1LL * slots * kRowChunk : staged_words(N);
+  return 4 * words + 4LL * row_plane(D) + 2LL * slots * sizeof(uint64_t);
+}
+
+template <int NP>
+cudaError_t launch_scatter_tile(const TileArgs& a, int B, int tiles, int smem,
+                                cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      scatter_tile_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  scatter_tile_kernel<NP><<<dim3(tiles, B), kTileThreads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -635,55 +912,72 @@ int dagcon_hist_wgmma(const void* values, void* out, int B, int N, int D,
   }
 }
 
-// As dagcon_hist_wgmma without the plan; D <= kMaxRowBins (the shared-memory histogram).
+// As dagcon_hist_wgmma, by P2 under the plan of ops/pk_cuda.py::
+// hist_row_plan: `slots` piece slots (staged: one per piece, at least 1;
+// ring: 2 or more, fewer than the pieces), `smem` dynamic shared bytes
+// (row_smem_bytes, <= 227 KB); D <= kMaxRowBins.
 int dagcon_hist_row(const void* values, void* out, int B, int N, int D,
-                    void* stream) {
-  if (B < 0 || N < 0 || D < 0 || N > kMaxExtent || D > kMaxRowBins)
+                    int slots, int smem, void* stream) {
+  if (B < 0 || N < 0 || D < 0 || B > 65535 || N > kMaxExtent ||
+      D > kMaxRowBins)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || D == 0) return 0;
-  const int bins_pad = (D + 3) / 4 * 4;
-  const size_t smem = static_cast<size_t>(bins_pad + 2 * kStage) * 4;
+  const int nchunks = (N + kRowChunk - 1) / kRowChunk;
+  const bool staged = slots == max(nchunks, 1);
+  const bool ring = slots >= 2 && slots < nchunks;
+  if (!(staged || ring) || smem != row_smem_bytes(N, D, slots) ||
+      smem > kMaxSmemBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
-      hist_row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      hist_row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const bool vec =
-      reinterpret_cast<uintptr_t>(values) % 16 == 0 && N % 4 == 0;
-  hist_row_kernel<<<B, kRowThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(values), static_cast<int32_t*>(out), N, D,
-      bins_pad, vec);
+  RowArgs a{static_cast<const int32_t*>(values), static_cast<int32_t*>(out),
+            N, D, slots};
+  hist_row_kernel<<<B, kRowThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // outs[k] [B, D] int32 (every element written); ranks [B, N] int32 (values
 // outside [0, D) dropped); payloads[k] [B, N] int32; 1 <= NP <= 4. All
-// contiguous. The tile T is the widest multiple of 128 whose NP planes fit
-// the shared memory of a block, evened out over the tiles of a row.
+// contiguous. The plan of ops/pk_cuda.py::tile_plan: `tiles` tiles of
+// `bins` bins per row (bins % 4 == 0; none empty), `stages` ring stages (2
+// to 8), `smem` dynamic shared bytes (tile_smem_bytes, at most 227 KB).
 int dagcon_scatter_tile(const void* ranks, const void* const* payloads,
                         void* const* outs, int NP, int B, int N, int D,
-                        unsigned int cut_mask, void* stream) {
+                        unsigned int cut_mask, int tiles, int bins, int stages,
+                        int smem, void* stream) {
   if (B < 0 || N < 0 || D < 0 || NP < 1 || NP > kMaxPayloads || B > 65535 ||
       N > kMaxExtent || D > kMaxExtent)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || D == 0) return 0;
-  Payloads pl{};
+  if (tiles < 1 || bins < 4 || bins % 4 != 0 ||
+      static_cast<long long>(tiles) * bins < D ||
+      static_cast<long long>(tiles - 1) * bins >= D ||
+      stages < kMinStages || stages > kMaxStages ||
+      smem != tile_smem_bytes(NP, bins, stages) || smem > kMaxSmemBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  TileArgs a{};
+  a.src[0] = static_cast<const int32_t*>(ranks);
   for (int k = 0; k < NP; ++k) {
-    pl.p[k] = static_cast<const int32_t*>(payloads[k]);
-    pl.out[k] = static_cast<int32_t*>(outs[k]);
+    a.src[1 + k] = static_cast<const int32_t*>(payloads[k]);
+    a.out[k] = static_cast<int32_t*>(outs[k]);
   }
-  const int max_t = kMaxSmemBytes / (NP * 4) / kLanes * kLanes;
-  const int tiles = (D + max_t - 1) / max_t;
-  const int T = ((D + tiles - 1) / tiles + kLanes - 1) / kLanes * kLanes;
-  const size_t smem = static_cast<size_t>(NP) * T * 4;
-  cudaError_t e = cudaFuncSetAttribute(
-      scatter_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(tiles, B);
-  scatter_tile_kernel<<<grid, kScatterThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(ranks), pl, NP, N, D, T, cut_mask);
-  return static_cast<int>(cudaGetLastError());
+  a.N = N;
+  a.D = D;
+  a.bins = bins;
+  a.stages = stages;
+  a.cut = cut_mask;
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (NP) {
+    case 1:
+      return static_cast<int>(launch_scatter_tile<1>(a, B, tiles, smem, st));
+    case 2:
+      return static_cast<int>(launch_scatter_tile<2>(a, B, tiles, smem, st));
+    case 3:
+      return static_cast<int>(launch_scatter_tile<3>(a, B, tiles, smem, st));
+    default:
+      return static_cast<int>(launch_scatter_tile<4>(a, B, tiles, smem, st));
+  }
 }
 
 const char* dagcon_cuda_error_string(int err) {

@@ -518,8 +518,14 @@ def run_devbuild_native(stream, out, cfg, stats, device, journal=None):
     into pinned memory, uploads them and enqueues the build, the DP and
     the backtrack on the current CUDA stream; the emitter waits on each
     batch's CUDA event, assembles and writes. Engine indices shift on
-    `enc_clear`, so submits and the emit-and-clear section serialize on
-    `idx_lock`.
+    `enc_clear`, so the part of a submit that reads them (metas, sids,
+    bucketing, the fill into freshly allocated pinned tensors) and the
+    emitter's write-and-clear section serialize on `idx_lock`. The
+    upload and the enqueue read only the filled tensors and run after
+    the lock is released, while the emitter writes the previous window.
+    The main thread is the only submitter, so device order is window
+    order, and a window goes to the emitter once its batches are
+    enqueued.
 
     Host-clock seconds go to `stats.stage_s`: "encode" (producer),
     "fill", "upload", "build", "dp", "emit" (the device work: on the
@@ -679,12 +685,15 @@ def run_devbuild_native(stream, out, cfg, stats, device, journal=None):
             while emq.get() is not SENTINEL:  # never block the main put()
                 pass
 
-    def submit_window(offset: int, count: int) -> dict:
-        """Bucket and dispatch one window (engine indices offset ..
-        offset + count - 1); indices in the returned work are
-        window-relative. Its "fallback" holds (index, reason) of the
-        targets that go to the host before the device: "oversize" past
-        every shape ladder, "ins_cap" past the insertion-stream cap."""
+    def plan_window(offset: int, count: int) -> dict:
+        """Bucket one window (engine indices offset .. offset + count -
+        1) and fill its batches' inputs into pinned memory: all of a
+        submit that reads engine indices, so the caller holds
+        `idx_lock`. Indices in the returned plan are window-relative.
+        Its "fallback" holds (index, reason) of the targets that go to
+        the host before the device: "oversize" past every shape ladder,
+        "ins_cap" past the insertion-stream cap; "parts" holds (indices,
+        filled host tensors, bucket key, caps, P) of each batch."""
         metas = eng.enc_metas(count, offset=offset)
         sids = [eng.enc_sid(offset + i) for i in range(count)]
         prof = _profile(int(metas[:, 3].sum()), int(metas[:, 4].sum()))
@@ -701,7 +710,7 @@ def run_devbuild_native(stream, out, cfg, stats, device, journal=None):
                 fallback.append((i, "oversize"))
             else:
                 buckets.setdefault(key, []).append(i)
-        batches = []
+        parts = []
         for (Rb, Cb, Lb), idxs in buckets.items():
             bkey = (Rb, Cb, Lb, prof.W)
             caps = choose_window_caps(
@@ -721,21 +730,31 @@ def run_devbuild_native(stream, out, cfg, stats, device, journal=None):
                     NI, B=caps.B, pin_memory=pin,
                 )
                 stats.add_time("fill", t0)
-                t0 = time.perf_counter()
-                inputs = tuple(t.to(device, non_blocking=True) for t in host)
-                stats.add_time("upload", t0)
-                t0 = time.perf_counter()
-                fetch = _Fetch(
-                    run_batch(inputs, caps, P, cfg.min_weight, packed=True,
-                              stats=stats),
-                    device,
-                )
-                stats.batches += 1
-                batches.append((part, fetch, bkey, caps))
+                parts.append((part, host, bkey, caps, P))
         return {
             "count": count, "sids": sids, "fallback": fallback,
-            "batches": batches,
+            "parts": parts,
         }
+
+    def dispatch_window(plan: dict) -> dict:
+        """Upload a planned window's inputs and enqueue its batches; the
+        window the emitter takes. Reads no engine index, so it runs
+        without `idx_lock`."""
+        batches = []
+        for part, host, bkey, caps, P in plan.pop("parts"):
+            t0 = time.perf_counter()
+            inputs = tuple(t.to(device, non_blocking=True) for t in host)
+            stats.add_time("upload", t0)
+            t0 = time.perf_counter()
+            fetch = _Fetch(
+                run_batch(inputs, caps, P, cfg.min_weight, packed=True,
+                          stats=stats),
+                device,
+            )
+            stats.batches += 1
+            batches.append((part, fetch, bkey, caps))
+        plan["batches"] = batches
+        return plan
 
     producer_thread = None
     try:
@@ -763,7 +782,8 @@ def run_devbuild_native(stream, out, cfg, stats, device, journal=None):
                 while avail >= WIN or (eof and avail > 0):
                     cnt = min(WIN, avail)
                     with idx_lock:
-                        win = submit_window(submitted - cleared[0], cnt)
+                        plan = plan_window(submitted - cleared[0], cnt)
+                    win = dispatch_window(plan)
                     submitted += cnt
                     avail -= cnt
                     emq.put(win)

@@ -115,11 +115,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.dagcon_hist_wgmma.restype = ci
         lib.dagcon_hist_wgmma.argtypes = [vp, vp] + [ci] * 6 + [vp]
         lib.dagcon_hist_row.restype = ci
-        lib.dagcon_hist_row.argtypes = [vp, vp, ci, ci, ci, vp]
+        # (values, out, B, N, D, slots, smem, stream)
+        lib.dagcon_hist_row.argtypes = [vp, vp] + [ci] * 5 + [vp]
         lib.dagcon_scatter_tile.restype = ci
+        # (ranks, payloads, outs, NP, B, N, D, cut_mask, tiles, bins,
+        # stages, smem, stream)
         lib.dagcon_scatter_tile.argtypes = [
             vp, ctypes.POINTER(vp), ctypes.POINTER(vp), ci, ci, ci, ci,
-            ctypes.c_uint, vp,
+            ctypes.c_uint, *[ci] * 4, vp,
         ]
     lib.dagcon_cuda_error_string.restype = ctypes.c_char_p
     lib.dagcon_cuda_error_string.argtypes = [ci]

@@ -4,9 +4,11 @@ kernels of `tools/prof_pk.py`), under the JAX tool's names.
 - `hist_v0`: B2, the devbuild build's histogram (`_pallas_hist` there,
   `ops/mxu_cuda.py::hist_cuda` here);
 - `hist_v1` (P1): the factorized one-hot product, on the tensor cores;
-- `hist_v2` (P2): one block per row, the whole histogram on chip;
-- `pallas_scatter` (P3): the payload scatter, one block per (D tile,
-  row), each tile accumulated on chip.
+- `hist_v2` (P2): one CTA per row, the row staged on chip at once by
+  TMA bulk copies beside its whole histogram;
+- `pallas_scatter` (P3): the payload scatter over D tiles, one CTA per
+  tile accumulating it on chip, each staging the row's aligned middle by
+  TMA bulk copies (so each tile re-reads the row).
 
 The contracts are those of `ops/mxu.py`: a histogram counts each row's
 values in [0, D) and drops the rest; the scatter sums each payload's low
@@ -44,8 +46,9 @@ def hist_v1(values: torch.Tensor, D: int, nc: int = 2048) -> torch.Tensor:
 
 
 def hist_v2(values: torch.Tensor, D: int, nc: int = 2048) -> torch.Tensor:
-    """[B, N] int32 -> [B, D] int32 counts by P2 (one block per row;
-    D <= pk_cuda.MAX_ROW_BINS on the card)."""
+    """[B, N] int32 -> [B, D] int32 counts by P2 (one CTA per row, the
+    row staged beside the bins; D <= pk_cuda.MAX_ROW_BINS on the
+    card)."""
     if _on_card(values):
         return pk_cuda.hist_v2_cuda(values.contiguous(), D)
     return mxu.hist_reference(values, None, D)

@@ -2,12 +2,13 @@
 designs and the payload scatter of the devbuild build against each other
 and against their plain PyTorch versions, at the build's real shapes.
 
-- hist v0 (B2, the build's kernel), v1 (P1, tensor cores), v2 (P2, one
-  block per row) and the plain version, at (N, D) in {(40960, 1026),
-  (40960, 9234), (6144, 8208)}, B = 128;
-- scatter P3 (tiled), B3 (`mxu.mxu_scatter`) and the plain version, with
-  two int32 payloads, at [6144 -> 78848], [6144 -> V = 5632] (colliding
-  ranks) and [3072 -> 12 V];
+- hist v0 (B2, the build's kernel), v1 (P1, tensor cores), v2 (P2, the
+  row staged whole beside its bins in one CTA) and the plain version, at
+  (N, D) in {(40960, 1026), (40960, 9234), (6144, 8208)}, B = 128;
+- scatter P3 (a CTA per D tile, each staging the row by TMA), B3
+  (`mxu.mxu_scatter`) and the plain version, with two int32 payloads, at
+  [6144 -> 78848], [6144 -> V = 5632] (colliding ranks) and
+  [3072 -> 12 V];
 - the tail-compaction sort: [B, 6144] int16-range keys carrying two
   int32 payloads (`torch.sort(stable=True)` and `gather`).
 

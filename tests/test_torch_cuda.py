@@ -480,6 +480,101 @@ def test_pk_wrappers_reject_what_they_do_not_take(card):
         pk_cuda.scatter_tile_cuda(v, (v,) * 5, 4, 0xFF)
 
 
+def _offset_rows(card, a: np.ndarray, off: int) -> torch.Tensor:
+    """`a` on the card as a view whose value 0 lies `off` values past the
+    start of its (16-byte-aligned) allocation."""
+    flat = torch.empty(a.size + off, dtype=torch.int32, device=card)
+    flat[off:] = torch.from_numpy(a.reshape(-1)).to(card)
+    return flat[off:].view(a.shape)
+
+
+# P3's plans: (B, N, D, NP, tiles the plan takes, value offset of the
+# ranks' and each payload's allocation). One tile and 3 to 6 tiles, NP
+# 1-4, every N mod 4 (odd rows start off their allocation's alignment by
+# N mod 4), payload rows misaligned unlike the ranks' (read from global
+# memory), N = 0.
+PK_TILE_ROUTES = [
+    (5, 3000, 300, 1, 1, (0, 0)), (3, 3001, 60001, 2, 3, (1, 1, 1)),
+    (4, 2042, 40003, 3, 3, (2, 2, 2, 2)),
+    (3, 4099, 50000, 4, 6, (3, 3, 3, 3, 3)),
+    (5, 1500, 80, 2, 1, (0, 1, 3)), (7, 1021, 41, 1, 1, (3, 0)),
+    (2, 20000, 4000, 2, 1, (0, 0, 0)), (3, 5003, 1000, 4, 1, (1, 2, 3, 0, 1)),
+    (3, 0, 100, 2, 1, (0, 0, 0)), (2, 3000, 250_000, 1, 6, (1, 2)),
+]
+
+
+@pytest.mark.parametrize("B,N,D,NP,tiles,offsets", PK_TILE_ROUTES)
+def test_pk_scatter_tile_on_every_route(card, B, N, D, NP, tiles, offsets):
+    """Repeated ranks (every fifth in the last bin), ranks outside [0,
+    D), over-wide payloads cut to 3 bytes, outputs allocated over
+    garbage."""
+    rng = np.random.default_rng(B * 13 + N + D + NP)
+    r = rng.integers(-3, D + 5, (B, N)).astype(np.int32)
+    r[:, ::5] = D - 1
+    ranks = _offset_rows(card, r, offsets[0])
+    ps = tuple(_offset_rows(card, rng.integers(
+        -(1 << 31), (1 << 31) - 1, (B, N)).astype(np.int32), offsets[1 + k])
+        for k in range(NP))
+    assert pk_cuda.tile_plan(N, D, NP).tiles == tiles
+    torch.full((NP + 1, B, D), -7, dtype=torch.int32, device=card)  # garbage
+    before = pk_cuda.launches["pallas_scatter"]
+    got = pk_cuda.scatter_tile_cuda(ranks, ps, D, 0xFFFFFF)
+    assert pk_cuda.launches["pallas_scatter"] == before + 1
+    want = mxu.scatter_reference(ranks, None, ps, D, 0xFFFFFF)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# P2's routes: (N, D, value offset of the rows' allocation): staged rows
+# of every N mod 4, the largest staged row, rows past one CTA (the ring),
+# N = 0.
+PK_ROW_ROUTES = [
+    (9000, 700, 0), (9001, 700, 1), (8186, 33, 2),
+    (4095, 1026, 3), (41000, 15000, 1), (70001, 9234, 1),
+    (100_000, 48 * 1024, 2), (0, 300, 0),
+]
+
+
+@pytest.mark.parametrize("N,D,off", PK_ROW_ROUTES)
+def test_pk_hist_row_on_every_route(card, N, D, off):
+    """Row 0 all in the last bin (a count of N in one bin), values
+    outside [0, D), outputs allocated over garbage."""
+    rng = np.random.default_rng(N + D + off)
+    v = rng.integers(-3, D + 300, (3, N)).astype(np.int32)
+    v[0] = D - 1
+    values = _offset_rows(card, v, off)
+    plan = pk_cuda.hist_row_plan(N, D)
+    assert plan.route == ("ring" if N > 60_000 else "staged")
+    torch.full((2, 3, D), -7, dtype=torch.int32, device=card)  # garbage
+    before = pk_cuda.launches["hist_v2"]
+    got = pk_cuda.hist_v2_cuda(values, D, plan=plan)
+    assert pk_cuda.launches["hist_v2"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, mxu.hist_reference(values, None, D))
+
+
+def test_pk_entries_refuse_plans_they_do_not_take(card):
+    """Tile plans: tiles that miss D or leave one empty, bins not a
+    multiple of 4, one stage, nine stages, wrong shared bytes, more than
+    one CTA's. Row plans: one slot for three pieces, more slots than
+    pieces, wrong shared bytes."""
+    v = torch.zeros((2, 9000), dtype=torch.int32, device=card)
+    T, tsm = pk_cuda.TilePlan, pk_cuda.tile_smem
+    for plan in (T(2, 12, 2, tsm(1, 12, 2)), T(4, 12, 2, tsm(1, 12, 2)),
+                 T(3, 10, 2, tsm(1, 10, 2)), T(3, 12, 1, tsm(1, 12, 1)),
+                 T(3, 12, 9, tsm(1, 12, 9)), T(3, 12, 2, 999),
+                 T(1, 60000, 2, tsm(1, 60000, 2))):
+        with pytest.raises(RuntimeError, match="pallas_scatter launch"):
+            pk_cuda.scatter_tile_cuda(v, (v,), 30, 0xFF, plan=plan)
+    R, rsm = pk_cuda.RowPlan, pk_cuda.row_smem
+    for plan in (R("staged", 1, rsm(9000, 30, 1)),
+                 R("ring", 4, rsm(9000, 30, 4)),
+                 R("ring", 2, rsm(9000, 30, 2) + 16)):
+        with pytest.raises(RuntimeError, match="hist_v2 launch"):
+            pk_cuda.hist_v2_cuda(v, 30, plan=plan)
+    torch.cuda.synchronize()
+
+
 def _devbuild_text() -> str:
     lines = [
         to_m5(a)

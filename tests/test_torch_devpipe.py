@@ -7,6 +7,7 @@ package's. The same path on the card is in tests/test_torch_cuda.py."""
 import functools
 import io
 import random
+import threading
 
 import numpy as np
 import pytest
@@ -247,3 +248,75 @@ def test_devbuild_ins_cap_fallbacks_have_their_own_reason(use_native,
     assert stats.fallback_reasons == {"ins_cap": 4}
     assert stats.host_fallbacks == 4 == _jax_ins_cap_fallbacks()
     assert stats.batches >= 1  # the other two went through the device
+
+
+def _multi_window_text() -> str:
+    rng = random.Random(9)
+    return "\n".join(
+        to_m5(a, flip=rng.random() < 0.3)
+        for _t, _b, alns in simulate_targets(2024, 100, 200, 8)
+        for a in alns
+    ) + "\n"
+
+
+def test_devbuild_native_several_windows_equal_single_thread_engine():
+    """Four windows of 32 targets (batch_targets 8, windows of at least
+    32), the last one short: the FASTA is byte-equal to the host path
+    and to the single-thread native engine's."""
+    _skip_without_native(True)
+    from pbdagcon_tpu_torch import native as tnative
+
+    text = _multi_window_text()
+    kw = dict(min_weight=3, min_length=50)
+    host, _ = _run(text, "host", **kw)
+    dev, stats = _run(text, "devbuild", batch_targets=8, **kw)
+    with tnative.NativeEngine(min_weight=3, min_length=50, threads=1) as eng:
+        single = eng.consensus_text(text.encode())
+    assert dev == host == single
+    assert stats.targets == 100 and stats.batches >= 4
+    assert stats.host_fallbacks == 0
+
+
+def test_devbuild_native_enqueues_outside_the_index_lock(monkeypatch):
+    """Each window's batches are uploaded and enqueued while the emitter
+    may write the previous window: `run_batch` of window k waits (at most
+    20 s) until the emitter has cleared window k - 1, which it does under
+    the index lock. A submitter that held the lock through its enqueue
+    would time out here."""
+    _skip_without_native(True)
+    from pbdagcon_tpu_torch import native as tnative
+
+    seen = {"windows": 0, "clears": 0}
+    cleared = threading.Condition()
+    real_metas = tnative.NativeEngine.enc_metas
+    real_clear = tnative.NativeEngine.enc_clear
+    real_run_batch = devpipe.run_batch
+
+    def enc_metas(self, count, offset=0):
+        seen["windows"] += 1  # once per window, under the lock
+        return real_metas(self, count, offset=offset)
+
+    def enc_clear(self, upto):
+        real_clear(self, upto)
+        with cleared:
+            seen["clears"] += 1
+            cleared.notify_all()
+
+    def run_batch(*a, **k):
+        previous = seen["windows"] - 1
+        with cleared:
+            if not cleared.wait_for(lambda: seen["clears"] >= previous,
+                                    timeout=20):
+                raise TimeoutError("the emitter never wrote the previous "
+                                   "window while a batch was enqueued")
+        return real_run_batch(*a, **k)
+
+    monkeypatch.setattr(tnative.NativeEngine, "enc_metas", enc_metas)
+    monkeypatch.setattr(tnative.NativeEngine, "enc_clear", enc_clear)
+    monkeypatch.setattr(devpipe, "run_batch", run_batch)
+    text = _multi_window_text()
+    kw = dict(min_weight=3, min_length=50)
+    host, _ = _run(text, "host", **kw)
+    dev, stats = _run(text, "devbuild", batch_targets=8, **kw)
+    assert dev == host
+    assert seen["windows"] == 4 and seen["clears"] == 4
