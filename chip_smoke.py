@@ -6,8 +6,8 @@ Phases, in order; any failure exits non-zero before the last line:
 
 1. Require CUDA, print the card's name and power limit, build the native
    engine (`make -C native`) and the kernels (`csrc/dp_scan.cu`,
-   `csrc/hist_scatter.cu`, `csrc/pk_variants.cu`: one nvcc each, started
-   together, sm_90a).
+   `csrc/hist_scatter.cu`, `csrc/pk_variants.cu`, `csrc/align_scan.cu`:
+   one nvcc each, started together, sm_90a).
 2. Hold the DP kernel against its plain PyTorch version on the card,
    bitwise (0 ulp): random arena batches over W in {16,32,64,128} x K in
    {8,32,128} (B not a multiple of 32, long edges, unsup nodes, -1 gaps;
@@ -56,18 +56,42 @@ Phases, in order; any failure exits non-zero before the last line:
    native engine's, and the launches of hist, scatter and dp_scan over
    the runs each > 0. Prints the host fallbacks by reason, the stages'
    host-clock seconds, b/s, and a traced run's device busy time.
-6. A JSON line of kernels (each with its launches on the main paths,
-   max_abs_err, ms, plain_ms, bound_ms and library_ms; hist and scatter
-   also with their masked window and their per-call readings), then the
-   last line:
+7. Kernel X1 (`csrc/align_scan.cu`: the aligner's scan and traceback)
+   against its plain versions, array-equal on the packed pointers and
+   the moves: random pairs (B = 77), length skew (Wa > 1024), identical
+   sequences of lengths 1-2000, then the first 1024 raw records of the
+   bench workload, where both are timed with CUDA events beside the
+   bound (bytes or int32 operations, whichever is larger).
+8. The `-a` device path at full width: the bench workload through
+   `run_stream` (cuda backend, align_backend "device"), FASTA byte-equal
+   to the single-thread native engine, the align and dp_scan launches
+   > 0, the stage seconds, and b/s as a median of 3 beside the host
+   aligner's, in turns; then a traced run.
+9. The frontends: M4 overlaps + reads at the bench scale through
+   `hgap.run_hgap` and the `-a` device path (byte-equal to the native
+   engine on the same 'pre'), then `dazcon.run_dazcon` on the card over
+   64 targets (X1 and dp_scan launched; its first 16 targets byte-equal
+   to device="cpu").
+10. The hybrid scheduler on the bench workload: forced device pulls
+   (device chunks, hist, scatter and dp_scan launches > 0), defaults,
+   and no probe deferral; each FASTA byte-equal, the chunk split, b/s
+   and the device worker's first-use warmup printed.
+
+Then a JSON line of kernels (each with its launches on the main paths,
+max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms; hist and
+scatter also with their masked window and their per-call readings), and
+the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import os
+import random
+import shutil
 import subprocess
 import sys
 import time
@@ -77,9 +101,12 @@ SEED = 1234
 TARGETS, LENGTH, COVERAGE = 512, 1000, 30
 GRID_B, GRID_V = 37, 700
 DEVBUILD_BATCH = 128  # bench.py's batch_targets for the devbuild path
-KERNEL_SOURCES = ("dp_scan", "hist_scatter", "pk_variants")
+KERNEL_SOURCES = ("dp_scan", "hist_scatter", "pk_variants", "align_scan")
 # Device-memory rate of an H100 SXM (80 GB HBM3), the `bound_ms` basis.
 HBM_BYTES_PER_S = 3.35e12
+# int32 operations per second of an H100 SXM outside the tensor cores:
+# 64 INT32 lanes per SM (the Hopper white paper) x 132 SMs x 1.98 GHz.
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
 
 def bound_ms(nbytes: int) -> float:
@@ -89,6 +116,50 @@ def bound_ms(nbytes: int) -> float:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# The hybrid run of phase 10 in a fresh process with an empty kernel
+# build directory (argv: that directory, the config's knobs as JSON):
+# prints one JSON line [cold, warm] of the two runs' device statistics.
+COLD_HYBRID = r"""
+import dataclasses, io, json, os, sys, time
+from pbdagcon_tpu_torch.ops import _build
+_build.BUILD_DIR = sys.argv[1]
+build_s, _nvcc_build = [0.0], _build.build
+def _timed_build(name, defines=()):
+    t0 = time.time()
+    try:
+        return _nvcc_build(name, defines)
+    finally:
+        build_s[0] += time.time() - t0
+_build.build = _timed_build
+from pbdagcon_tpu_torch import native
+from pbdagcon_tpu_torch.config import DagconConfig
+from pbdagcon_tpu_torch.io import FastaWriter
+from pbdagcon_tpu_torch.pipeline import run_stream
+knobs = json.loads(sys.argv[2])
+cfg = DagconConfig(**{k: tuple(v) if isinstance(v, list) else v
+                      for k, v in knobs.items()})
+text = open(os.path.join(sys.argv[1], "input.pre"), "rb").read()
+with native.NativeEngine(min_weight=cfg.min_weight, min_length=cfg.min_length,
+                         threads=cfg.threads, align=True) as eng:
+    want = eng.consensus_text(text, fmt="pre")
+runs = []
+for _ in range(2):
+    out = io.StringIO()
+    t0 = time.time()
+    st = run_stream(io.TextIOWrapper(io.BytesIO(text)), FastaWriter(out), cfg)
+    runs.append({
+        "wall": time.time() - t0, "fasta_ok": out.getvalue() == want,
+        "first_s": st.hybrid_dev_first_s, "first_bytes": st.hybrid_dev_first_bytes,
+        "dev_busy_s": st.hybrid_dev_busy_s - st.hybrid_dev_first_s,
+        "dev_bytes": st.hybrid_dev_bytes - st.hybrid_dev_first_bytes,
+        "dev_chunks": st.hybrid_dev_chunks, "host_chunks": st.hybrid_host_chunks,
+        "build_s": 0.0,
+    })
+runs[0]["build_s"] = build_s[0]
+print(json.dumps(runs))
+"""
 
 
 def log(*a) -> None:
@@ -816,7 +887,369 @@ def main() -> int:
     trace_report("devbuild traced run", prof, traced_dt, card, top=10,
                  batches=tstats.batches)
 
-    # ---- phase 6: results ----
+    # ---- phase 7: kernel X1 (the device aligner) vs plain versions ----
+    from pbdagcon_tpu_torch.aligner import align_pair
+    from pbdagcon_tpu_torch.ops import align_cuda, align_tpu
+    from pbdagcon_tpu_torch.simulate import random_seq, sample_read
+
+    worst_a = {"align_scan": 0, "align_traceback": 0}
+
+    def x1_args(pairs, B=None):
+        """The padded batch of `pairs` on the card, cut to its first B
+        rows (the kernels take any B; align_batch pads to the ladder)."""
+        p = align_tpu.prepare_batch(pairs)
+        B = len(p["m"]) if B is None else B
+        return p, [torch.from_numpy(np.ascontiguousarray(p[k][:B])).to(dev)
+                   for k in ("qb", "tb_pad", "m", "n", "bw")]
+
+    def hold_x1(pairs, what, B=None) -> tuple:
+        p, args = x1_args(pairs, B)
+        M, Wa, dmin, L = p["M"], p["Wa"], p["dmin"], p["L"]
+        got = align_cuda.align_scan_cuda(*args, M, Wa, dmin)
+        want = align_tpu.align_scan_plain(*args, M, Wa, dmin)
+        mv = align_cuda.traceback_cuda(got, args[2], args[3], M, Wa, dmin, L)
+        mv_want = align_tpu.traceback_plain(want, args[2], args[3], M, Wa,
+                                            dmin, L)
+        torch.cuda.synchronize()
+        worst_a["align_scan"] = max(worst_a["align_scan"], int_err(got, want))
+        worst_a["align_traceback"] = max(worst_a["align_traceback"],
+                                         int_err(mv, mv_want))
+        ok = torch.equal(got, want) and torch.equal(mv, mv_want)
+        log(f"X1 {what}: B={args[0].shape[0]} M={M} Wa={Wa} dmin={dmin} "
+            f"L={L}: {'array-equal' if ok else 'MISMATCH'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: X1 != plain version ({what})")
+        return p, args, got, mv
+
+    arng = random.Random(SEED + 7)
+    noise = NoiseProfile(sub=0.05, ins=0.12, dele=0.08)
+    pairs = []
+    for _ in range(77):
+        tt = random_seq(arng, arng.randint(1, 900))
+        qq, _ = sample_read(arng, tt, 0, len(tt), noise)
+        pairs.append((qq.replace("-", "") or "A", tt))
+    hold_x1(pairs, "random pairs", B=77)
+    skew = []
+    for k in range(9):
+        tt = random_seq(arng, 1400 + 150 * k)
+        skew += [(tt[300 + 40 * k: 800], tt), (tt, tt[50: 400 + 25 * k])]
+    p_skew, _, _, _ = hold_x1(skew, "length skew", B=18)
+    if p_skew["Wa"] <= 1024:
+        raise SystemExit("chip_smoke: the skew case did not reach Wa > 1024")
+    same = []
+    for ln in (1, 2, 3, 7, 64, 255, 256, 257, 511, 999, 1000, 1500, 2000):
+        ss = random_seq(arng, ln)
+        same.append((ss, ss))
+    hold_x1(same, "identical sequences, lengths 1-2000", B=13)
+    for what, prs in (("random pairs", pairs), ("length skew", skew),
+                      ("identical", same)):
+        if align_tpu.align_batch(prs, dev) != [align_pair(q, t) for q, t in prs]:
+            raise SystemExit(f"chip_smoke: align_batch != align_pair ({what})")
+    log("X1 align_batch on the card: byte-equal to align_pair on all three")
+
+    # One full batch of the bench workload: its first 1024 raw records.
+    bench_pairs = [(f[5], f[6]) for f in (l.split() for l in lines[:1024])]
+    p, args, got, mv = hold_x1(bench_pairs, "bench batch (first 1024 records)")
+    M, Wa, dmin, L = p["M"], p["Wa"], p["dmin"], p["L"]
+    scan_k = lambda: align_cuda.align_scan_cuda(*args, M, Wa, dmin)
+    scan_p = lambda: align_tpu.align_scan_plain(*args, M, Wa, dmin)
+    tb_k = lambda: align_cuda.traceback_cuda(got, args[2], args[3], M, Wa, dmin, L)
+    tb_p = lambda: align_tpu.traceback_plain(got, args[2], args[3], M, Wa, dmin, L)
+    # In turns (plain, kernel, kernel, plain).
+    x1 = {}
+    for name, k_fn, p_fn in (("align_scan", scan_k, scan_p),
+                             ("align_traceback", tb_k, tb_p)):
+        pa = time_ms(p_fn, 1)
+        ka = time_ms(k_fn, 10)
+        kb = time_ms(k_fn, 10)
+        pb = time_ms(p_fn, 1)
+        x1[name] = {"ms": (ka + kb) / 2, "plain_ms": (pa + pb) / 2,
+                    "turns": (pa, ka, kb, pb)}
+    # Bounds. Scan: the padded inputs read once and the pointers written
+    # once, against the int32 operations the pairs' band cells need (6
+    # per cell: diag and up adds, their max, the left chain's max, the
+    # pointer's two compares). Traceback: the pointer bytes its paths
+    # read, m and n, and the moves written.
+    Bb = len(p["m"])
+    ms_np, ns_np, bws_np = (p[k].astype(np.int64) for k in ("m", "n", "bw"))
+    cells = 0
+    for b in range(Bb):
+        rows = np.arange(1, ms_np[b] + 1)
+        c = align_tpu.band_centre(rows, ns_np[b], ms_np[b])
+        lo = np.maximum(1, c - bws_np[b])
+        hi = np.minimum(ns_np[b], c + bws_np[b])
+        cells += int(np.maximum(0, hi - lo + 1).sum())
+    scan_bytes = nbytes(*args, got)
+    scan_ops = 6 * cells
+    mv_np = mv.cpu().numpy()
+    path_len = int((mv_np != 3).sum())
+    tb_bytes = path_len + nbytes(args[2], args[3], mv)
+    for name, nb_, ops in (("align_scan", scan_bytes, scan_ops),
+                           ("align_traceback", tb_bytes, 0)):
+        t_bytes = bound_ms(nb_)
+        t_ops = ops / INT32_OPS_PER_S * 1e3
+        x1[name].update(bound_ms=max(t_bytes, t_ops),
+                        bound_by="bytes" if t_bytes >= t_ops else "operations",
+                        bytes=nb_, int32_ops=ops)
+        log(f"{name} at B={Bb} M={M} Wa={Wa} (rows {M}, lanes {Wa}; band cells "
+            f"{cells}, path steps {path_len}): kernel {x1[name]['turns'][1]} / "
+            f"{x1[name]['turns'][2]} ms, plain PyTorch {x1[name]['turns'][0]} / "
+            f"{x1[name]['turns'][3]} ms, bound {x1[name]['bound_ms']} ms "
+            f"(bytes {nb_} -> {t_bytes} ms, int32 ops {ops} -> {t_ops} ms: "
+            f"{x1[name]['bound_by']}) [{card}]")
+    # Host-clock parts of align_batch on the same batch (3 runs): the
+    # host preparation, the device part (upload, scan, traceback, moves
+    # back), the host replay into gapped strings.
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pb = align_tpu.prepare_batch(bench_pairs)
+        t1 = time.perf_counter()
+        mv_np = align_tpu.device_moves(pb, dev)
+        t2 = time.perf_counter()
+        gapped = align_tpu.replay_moves(bench_pairs, mv_np)
+        t3 = time.perf_counter()
+        log(f"align_batch of the bench batch, host clock: prepare "
+            f"{t1 - t0:.4f} s, device {t2 - t1:.4f} s, replay {t3 - t2:.4f} s "
+            f"[{card}]")
+    if gapped != [align_pair(q, t) for q, t in bench_pairs[:64]] + gapped[64:]:
+        raise SystemExit("chip_smoke: align_batch != align_pair (bench batch)")
+    for line in _build.build_logs.get("align_scan", "").splitlines():
+        if any(w in line for w in ("registers", "spill", "error")):
+            log(f"  ptxas align_scan: {line.strip()}")
+    del args, got, mv
+
+    # ---- phase 8: the -a device path at full width ----
+    acfg = dataclasses.replace(cfg, align_backend="device")
+
+    def run_align(c):
+        out = io.StringIO()
+        t0 = time.time()
+        st = run_stream(io.TextIOWrapper(io.BytesIO(text)), FastaWriter(out), c)
+        torch.cuda.synchronize()
+        return time.time() - t0, st, out.getvalue()
+
+    run_align(acfg)  # warm-up
+    # In turns: host aligner, device, device, device, host, host. The
+    # counts are set to 0 just before each run and read just after it:
+    # each device run must launch every kernel of its path, and its
+    # counts add up into `align_launches`; a host-aligner run must launch
+    # no X1.
+    order = ("host", "device", "device", "device", "host", "host")
+    aruns = {"host": [], "device": []}
+    align_launches = dict.fromkeys((*align_cuda.launches, "dp_scan"), 0)
+    for which in order:
+        for k in align_cuda.launches:
+            align_cuda.launches[k] = 0
+        dp_cuda.launches = 0
+        aruns[which].append(run_align(acfg if which == "device" else cfg))
+        run_launches = {**align_cuda.launches, "dp_scan": dp_cuda.launches}
+        if which == "host" and any(align_cuda.launches.values()):
+            raise SystemExit(f"chip_smoke: a host-aligner run launched X1 "
+                             f"({run_launches})")
+        if which == "device":
+            if any(v == 0 for v in run_launches.values()):
+                raise SystemExit(f"chip_smoke: an -a device run did not run "
+                                 f"its kernels ({run_launches})")
+            for k, v in run_launches.items():
+                align_launches[k] += v
+    if any(r[2] != fasta_host for rs in aruns.values() for r in rs):
+        raise SystemExit("chip_smoke: -a device path FASTA != single-core C++")
+    _, astats, _ = aruns["device"][-1]
+    if "align" not in astats.stage_s or astats.targets != TARGETS:
+        raise SystemExit(f"chip_smoke: bad -a device run: {astats}")
+    log(f"-a device path: targets={astats.targets} batches={astats.batches} "
+        f"launches over its 3 runs {align_launches}; FASTA byte-equal to the "
+        f"single-thread native engine (host aligner) [{card}]")
+    stages = ", ".join(f"{k} {v:.4f}" for k, v in astats.stage_s.items())
+    log(f"-a device host-clock seconds by stage (last run, wall "
+        f"{aruns['device'][-1][0]:.4f}): {stages} [{card}]")
+    for which in ("device", "host"):
+        d = sorted(r[0] for r in aruns[which])
+        log(f"-a {which} aligner end-to-end: {bases / d[1]:.1f} b/s median "
+            f"of 3 (min {bases / d[-1]:.1f}, max {bases / d[0]:.1f}; walls "
+            f"{[round(r[0], 4) for r in aruns[which]]}) [{card}]")
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    ) as prof:
+        traced_dt, _, traced_fa = run_align(acfg)
+    if traced_fa != fasta_host:
+        raise SystemExit("chip_smoke: traced -a device FASTA != single-core C++")
+    trace_report("-a device traced run", prof, traced_dt, card, top=6)
+
+    # ---- phase 9: the frontends (hgap -> -a device path; dazcon) ----
+    from pbdagcon_tpu_torch.dazcon import run_dazcon
+    from pbdagcon_tpu_torch.hgap import run_hgap
+    from pbdagcon_tpu_torch.pipeline import PipelineStats
+
+    # Reads FASTA + M4 overlaps at the bench scale (the generator of
+    # tests/test_frontend_clis.py).
+    t = time.time()
+    frng = random.Random(SEED)
+    ftargets = {f"t{i:04d}": random_seq(frng, LENGTH) for i in range(TARGETS)}
+    freads = dict(ftargets)
+    m4_lines = []
+    fnoise = NoiseProfile(sub=0.01, ins=0.05, dele=0.03)
+    for tname, tseq in ftargets.items():
+        for j in range(COVERAGE):
+            qstr, _ = sample_read(frng, tseq, 0, len(tseq), fnoise)
+            qseq = qstr.replace("-", "")
+            qname = f"{tname}_r{j}"
+            freads[qname] = qseq
+            m4_lines.append(
+                f"{qname} {tname} {-5 * len(qseq)} 99.0 0 0 {len(qseq)} "
+                f"{len(qseq)} 0 0 {len(tseq)} {len(tseq)} 254")
+    pre_text = run_hgap(io.StringIO("\n".join(m4_lines) + "\n"), freads)
+    log(f"frontends: {len(ftargets)} targets, {len(m4_lines)} M4 hits, hgap "
+        f"'pre' {len(pre_text) / 1e6:.1f} MB in {time.time() - t:.1f}s")
+    for k in align_cuda.launches:
+        align_cuda.launches[k] = 0
+    dp_cuda.launches = 0
+    t0 = time.time()
+    out = io.StringIO()
+    hstats = run_stream(io.StringIO(pre_text), FastaWriter(out), acfg)
+    hgap_dt = time.time() - t0
+    hgap_launches = {**align_cuda.launches, "dp_scan": dp_cuda.launches}
+    with native.NativeEngine(
+        min_weight=min_weight, min_length=100, threads=threads, align=True
+    ) as eng:
+        hgap_host = eng.consensus_text(pre_text.encode(), fmt="pre")
+    if out.getvalue() != hgap_host or hstats.targets != TARGETS:
+        raise SystemExit("chip_smoke: hgap -> -a device FASTA != native engine")
+    if any(v == 0 for v in hgap_launches.values()):
+        raise SystemExit(f"chip_smoke: the hgap chain did not run its kernels "
+                         f"({hgap_launches})")
+    log(f"hgap -> -a device path: targets={hstats.targets} wall {hgap_dt:.4f} s,"
+        f" launches {hgap_launches}; FASTA byte-equal to the native engine "
+        f"on the same 'pre' [{card}]")
+    # dazcon on the card over every target, then the first 16 of them on
+    # the CPU (plain versions) against the card's.
+    names = sorted(ftargets)
+    keep = set(names)
+    sub_m4 = [l for l in m4_lines if l.split()[1] in keep]
+    for k in align_cuda.launches:
+        align_cuda.launches[k] = 0
+    dp_cuda.launches = 0
+    dz_stats = PipelineStats()
+    t0 = time.time()
+    dz_out = io.StringIO()
+    n_dz = run_dazcon(iter(sub_m4), freads, dz_out, min_weight=min_weight,
+                      min_length=100, device="cuda", stats=dz_stats)
+    torch.cuda.synchronize()
+    dz_dt = time.time() - t0
+    dz_launches = {**align_cuda.launches, "dp_scan": dp_cuda.launches}
+    if n_dz == 0 or any(v == 0 for v in dz_launches.values()):
+        raise SystemExit(f"chip_smoke: dazcon did not run its kernels "
+                         f"({dz_launches}, {n_dz} emitted)")
+    first = set(names[:16])
+    dz_cpu = io.StringIO()
+    t0 = time.time()
+    run_dazcon(iter(l for l in sub_m4 if l.split()[1] in first), freads,
+               dz_cpu, min_weight=min_weight, min_length=100, device="cpu")
+    dz_cpu_dt = time.time() - t0
+    recs = dz_out.getvalue().split(">")[1:]
+    prefix = "".join(">" + r for r in recs if r.split("\n", 1)[0] in first)
+    if prefix != dz_cpu.getvalue() or not prefix:
+        raise SystemExit("chip_smoke: dazcon on the card != device='cpu'")
+    log(f"dazcon on the card: {len(names)} targets, {n_dz} emitted, wall "
+        f"{dz_dt:.4f} s, launches {dz_launches}, host DP {dz_stats.fallback_reasons}"
+        f"; its first 16 targets byte-equal to device='cpu' (CPU wall "
+        f"{dz_cpu_dt:.4f} s) [{card}]")
+
+    # ---- phase 10: hybrid on the bench workload ----
+    hcfg = dataclasses.replace(cfg, backend="hybrid",
+                               batch_targets=DEVBUILD_BATCH)
+
+    def first_use_warmup(st, warm_spb=None) -> str:
+        """The first device chunk's seconds less what its bytes take at
+        the device's later (warm) rate."""
+        rest_b = st.hybrid_dev_bytes - st.hybrid_dev_first_bytes
+        if warm_spb is None and rest_b > 0:
+            warm_spb = (st.hybrid_dev_busy_s - st.hybrid_dev_first_s) / rest_b
+        if warm_spb is None or not st.hybrid_dev_chunks:
+            return "not measured (no later device chunk)"
+        return f"{st.hybrid_dev_first_s - st.hybrid_dev_first_bytes * warm_spb:.4f} s"
+
+    # Forced: every pull goes to the device, in chunks of 512 KB with no
+    # hedging, so the device takes several chunks and its warm rate shows.
+    for label, env in (("forced", {"DAGCON_HYBRID_FORCE_DEV": "1",
+                                   "DAGCON_HYBRID_CHUNK_KB": "512",
+                                   "DAGCON_HYBRID_HEDGE": "0"}),
+                       ("defaults", {}),
+                       ("probe_defer_0", {"DAGCON_HYBRID_PROBE_DEFER_S": "0"})):
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        dp_cuda.launches = 0
+        mxu_cuda.launches.update(hist=0, scatter=0)
+        try:
+            out = io.StringIO()
+            t0 = time.time()
+            st = run_stream(io.TextIOWrapper(io.BytesIO(text)), FastaWriter(out),
+                            hcfg)
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        hl = {"dp_scan": dp_cuda.launches, **mxu_cuda.launches}
+        if out.getvalue() != fasta_host or st.targets != TARGETS:
+            raise SystemExit(f"chip_smoke: hybrid ({label}) FASTA != "
+                             "single-core C++")
+        if label == "forced" and (st.hybrid_dev_chunks == 0
+                                  or any(v == 0 for v in hl.values())):
+            raise SystemExit(f"chip_smoke: forced hybrid did not run the "
+                             f"device ({st.hybrid_dev_chunks} chunks, {hl})")
+        log(f"hybrid {label}: host/device chunks {st.hybrid_host_chunks}/"
+            f"{st.hybrid_dev_chunks} (bytes {st.hybrid_host_bytes}/"
+            f"{st.hybrid_dev_bytes}; busy s {st.hybrid_host_busy_s:.4f}/"
+            f"{st.hybrid_dev_busy_s:.4f}), {bases / dt:.1f} b/s (wall "
+            f"{dt:.4f} s), launches {hl}; device first chunk "
+            f"{st.hybrid_dev_first_s:.4f} s for {st.hybrid_dev_first_bytes} "
+            f"bytes, warmup in this (warm) process {first_use_warmup(st)}; "
+            f"FASTA byte-equal [{card}]")
+
+    # The device worker's first use in a fresh process: CUDA set-up and
+    # the nvcc builds of dp_scan and hist_scatter into an empty build
+    # directory, then the same run warm; forced pulls as above.
+    cold_dir = os.path.join(_build.BUILD_DIR, "cold")
+    shutil.rmtree(cold_dir, ignore_errors=True)
+    os.makedirs(cold_dir)
+    with open(os.path.join(cold_dir, "input.pre"), "wb") as f:
+        f.write(text)
+    knobs = {k: getattr(hcfg, k) for k in (
+        "min_weight", "min_length", "threads", "fmt", "align", "backend",
+        "v_buckets", "w_buckets", "batch_targets")}
+    res = subprocess.run(
+        [sys.executable, "-c", COLD_HYBRID, cold_dir, json.dumps(knobs)],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, DAGCON_HYBRID_FORCE_DEV="1",
+                 DAGCON_HYBRID_CHUNK_KB="512", DAGCON_HYBRID_HEDGE="0"),
+    )
+    if res.returncode != 0:
+        raise SystemExit(f"chip_smoke: the cold hybrid run failed:\n"
+                         f"{res.stderr[-3000:]}")
+    cold, warm = json.loads(res.stdout.strip().splitlines()[-1])
+    if cold["build_s"] <= 0:
+        raise SystemExit("chip_smoke: the cold hybrid run built no kernel")
+    if cold["fasta_ok"] is not True or warm["fasta_ok"] is not True:
+        raise SystemExit("chip_smoke: cold hybrid FASTA != single-core C++")
+    if warm["dev_bytes"]:
+        warm_spb = warm["dev_busy_s"] / warm["dev_bytes"]
+        rate = f"{warm_spb * 1e6:.4f} s/MB"
+        warmup = f"{cold['first_s'] - cold['first_bytes'] * warm_spb:.4f} s"
+    else:
+        rate = warmup = "not measured (one device chunk in the warm run)"
+    log(f"hybrid first use (fresh process, forced): device first chunk "
+        f"{cold['first_s']:.4f} s for {cold['first_bytes']} bytes (nvcc "
+        f"builds {cold['build_s']:.1f} s of it), the warm run's later "
+        f"device chunks {rate}: first-use warmup {warmup}; walls cold "
+        f"{cold['wall']:.4f} s, warm {warm['wall']:.4f} s "
+        f"(host/device chunks {cold['host_chunks']}/{cold['dev_chunks']}, "
+        f"{warm['host_chunks']}/{warm['dev_chunks']}) [{card}]")
+
+    # ---- results ----
     log(card)
     hist_ms, hist_plain, hist_lib, hist_bound = timed["hist"]
     sc_ms, sc_plain, sc_lib, sc_bound = timed["scatter"]
@@ -881,7 +1314,23 @@ def main() -> int:
         "prof_pk_ms": {k: v for k, v in prof_ms.items() if tag in k},
     } for name, line, op, tag in (
         ("hist_v1", 58, "hist", "v1 P1"), ("hist_v2", 113, "hist", "v2 P2"),
-        ("pallas_scatter", 169, "scatter", "P3"))]}), flush=True)
+        ("pallas_scatter", 169, "scatter", "P3"))] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "pbdagcon_tpu_torch/csrc/align_scan.cu",
+        "replaces": f"pbdagcon_tpu/ops/align_tpu.py:{line}",
+        "launches": align_launches[name],
+        "launches_by_path": {"align_device": align_launches[name],
+                             "dazcon": dz_launches[name]},
+        "max_abs_err": worst_a[name],
+        "ms": x1[name]["ms"],
+        "plain_ms": x1[name]["plain_ms"],
+        "bound_ms": x1[name]["bound_ms"],
+        "bound_by": x1[name]["bound_by"],
+        # No one PyTorch call computes a banded alignment scan or walk.
+        "library_ms": None,
+    } for name, line in (("align_scan", 88), ("align_traceback", 47))]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count(),

@@ -5,9 +5,10 @@ Reference flags: positional M5/'pre' input (or stdin), `-c` min coverage
 (8), `-m` min length (500), `-j` threads (4), `-t` trim (0), `-a`
 re-align. `--align-scorer`, `--affine-params` and `--align-backend` are
 the JAX package's -a knobs, with its names, choices and defaults;
-`--align-backend device` raises until the device aligner is ported
-(ROADMAP A12). `--backend devbuild` runs the graph build, the DP and the
-backtrack on the device. `--device` picks the device (default cuda;
+`--align-backend device` re-aligns raw 'pre' records in kernel X1 on the
+"cuda" backend. `--backend devbuild` runs the graph build, the DP and the
+backtrack on the device; `--backend hybrid` runs the host engine and the
+devbuild pipeline side by side on group-aligned chunks. `--device` picks the device (default cuda;
 "cpu" runs the kernels' plain PyTorch versions). `--distributed` comes with the
 multi-device slice (ROADMAP A14).
 """
@@ -63,10 +64,11 @@ def build_parser() -> argparse.ArgumentParser:
         "--fmt", choices=("m5", "pre"), default="m5", help="input format"
     )
     p.add_argument(
-        "--backend", choices=("auto", "cuda", "devbuild", "host"),
+        "--backend", choices=("auto", "cuda", "devbuild", "hybrid", "host"),
         default="auto",
         help="consensus backend: cuda (batched DP kernel), devbuild "
-        "(graph build, DP and backtrack on the device), host (native "
+        "(graph build, DP and backtrack on the device), hybrid (host "
+        "engine and devbuild side by side, rate-adaptive), host (native "
         "engine only); auto = cuda",
     )
     p.add_argument(
@@ -77,8 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--align-backend", choices=("host", "device"), default="host",
         help="where -a re-alignment runs: threaded C++ banded DP (host) "
-        "or the batched device kernel (device; not ported yet, ROADMAP "
-        "A12: raises); both are exact",
+        "or the batched device kernel (device; raw 'pre' records on the "
+        "cuda backend); both are exact",
     )
     p.add_argument(
         "--align-scorer", choices=("simple", "affine"), default="simple",

@@ -5,15 +5,33 @@ Same reference knobs and defaults as `pbdagcon_tpu.config.DagconConfig`
 (`-c` min coverage 8, `-m` min length 500, `-j` threads 4, `-t` trim 0).
 The execution knobs differ: the port's backends are "cuda" (the banded
 DP runs in the hand-written kernel, `ops/dp_cuda.py`), "devbuild" (graph
-build, DP and backtrack on the device, `devpipe.py`) and "host" (the
-native engine runs everything); "auto" means "cuda". `device` picks where
-the device work runs: a CUDA device launches the kernels, and an
-explicit "cpu" runs their plain PyTorch versions (tests).
+build, DP and backtrack on the device, `devpipe.py`), "hybrid" (the host
+engine and the devbuild pipeline on group-aligned chunks side by side,
+`hybrid.py`) and "host" (the native engine runs everything); "auto" means
+"cuda" (the reference resolves it to hybrid on an accelerator: ROADMAP
+records that as a decision still open). `device` picks where the device
+work runs: a CUDA device launches the kernels, and an explicit "cpu"
+runs their plain PyTorch versions (tests).
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+
+def resolve_device(device):
+    """`device` as a torch.device. A CUDA device that is absent raises:
+    the port never carries on on the CPU unless asked to."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but CUDA is not available "
+            "(pass device='cpu' to run the kernels' plain PyTorch versions)"
+        )
+    return dev
+
 
 # Backends of the JAX package that the port does not run (yet), with
 # the ROADMAP item that ports each.
@@ -25,7 +43,6 @@ _NOT_PORTED = {
     "colshard, A14)",
     "pallas": "the TPU forms of the DP are one kernel here: use "
     "backend='cuda' (ROADMAP B1)",
-    "hybrid": "the hybrid scheduler is not ported yet (ROADMAP A11)",
 }
 
 
@@ -41,8 +58,9 @@ class DagconConfig:
     fmt: str = "m5"
     # Re-align raw (ungapped) q/t pairs before graph building (dagcon -a).
     align: bool = False
-    # Where -a alignment runs: only "host" (threaded C++ banded DP) is
-    # ported; "device" is ROADMAP A12.
+    # Where -a alignment runs: "host" (threaded C++ banded DP) or
+    # "device" (kernel X1, `ops/align_tpu.py`; the "cuda" backend on raw
+    # 'pre' records only, as in the reference). Both are exact.
     align_backend: str = "host"
     # -a scorer: "simple" (SPEC §1.5) or "affine" (SPEC §1.6).
     align_scorer: str = "simple"
@@ -53,8 +71,9 @@ class DagconConfig:
     w_buckets: tuple[int, ...] = (16, 32, 64, 128)
     # Targets per device dispatch.
     batch_targets: int = 128
-    # "cuda" (device DP kernel), "devbuild" (all on the device), "host"
-    # (all native) or "auto" (= cuda).
+    # "cuda" (device DP kernel), "devbuild" (all on the device), "hybrid"
+    # (host engine + devbuild side by side), "host" (all native) or
+    # "auto" (= cuda).
     backend: str = "auto"
     # Device of the "cuda" and "devbuild" backends: a CUDA device, or
     # "cpu" for the kernels' plain PyTorch versions.
@@ -68,12 +87,7 @@ class DagconConfig:
     def __post_init__(self) -> None:
         if self.fmt not in ("m5", "pre"):
             raise ValueError(f"fmt must be 'm5' or 'pre', got {self.fmt!r}")
-        if self.align_backend == "device":
-            raise NotImplementedError(
-                "align_backend='device' is not ported yet (ROADMAP A12); "
-                "use align_backend='host'"
-            )
-        if self.align_backend != "host":
+        if self.align_backend not in ("host", "device"):
             raise ValueError(f"unknown align_backend {self.align_backend!r}")
         if self.align_scorer not in ("simple", "affine"):
             raise ValueError(f"unknown align_scorer {self.align_scorer!r}")
@@ -84,12 +98,18 @@ class DagconConfig:
                     "affine_params must satisfy match>=0, mismatch<=0, "
                     f"open<=extend<=0; got {self.affine_params}"
                 )
+            if self.align_backend == "device":
+                raise ValueError(
+                    "align_backend='device' implements the simple scorer "
+                    "only; use align_backend='host' with align_scorer="
+                    "'affine'"
+                )
         if self.backend in _NOT_PORTED:
             raise NotImplementedError(
                 f"backend {self.backend!r} is not ported: "
                 f"{_NOT_PORTED[self.backend]}"
             )
-        if self.backend not in ("auto", "cuda", "devbuild", "host"):
+        if self.backend not in ("auto", "cuda", "devbuild", "hybrid", "host"):
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.min_weight < 0 or self.min_length < 0 or self.trim < 0:
             raise ValueError("min_weight/min_length/trim must be >= 0")

@@ -1,5 +1,5 @@
 """Build and load the port's CUDA kernels (`csrc/dp_scan.cu`,
-`csrc/hist_scatter.cu`, `csrc/pk_variants.cu`).
+`csrc/hist_scatter.cu`, `csrc/pk_variants.cu`, `csrc/align_scan.cu`).
 
 `nvcc` compiles `csrc/<name>.cu` at first use into a shared library with
 a plain C interface, in `pbdagcon_tpu_torch/_build/` (listed in
@@ -124,6 +124,13 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             vp, ctypes.POINTER(vp), ctypes.POINTER(vp), ci, ci, ci, ci,
             ctypes.c_uint, *[ci] * 4, vp,
         ]
+    if name == "align_scan":
+        lib.dagcon_align_scan.restype = ci
+        # (qb, tb_pad, m, n, bw, packed, B, M, T, Wa, dmin, stream)
+        lib.dagcon_align_scan.argtypes = [vp] * 6 + [ci] * 5 + [vp]
+        lib.dagcon_align_traceback.restype = ci
+        # (packed, m, n, moves, B, M, Wa, dmin, L, stream)
+        lib.dagcon_align_traceback.argtypes = [vp] * 4 + [ci] * 5 + [vp]
     lib.dagcon_cuda_error_string.restype = ctypes.c_char_p
     lib.dagcon_cuda_error_string.argtypes = [ci]
 

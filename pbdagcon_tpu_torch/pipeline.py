@@ -13,8 +13,14 @@ Backends (`DagconConfig.backend`):
   `cfg.device`; with device "cpu", its plain PyTorch version.
 - "devbuild": graph build, DP and backtrack all on `cfg.device`
   (`devpipe.py`); the host encodes and assembles the fragments.
+- "hybrid": the native engine and the devbuild pipeline side by side on
+  group-aligned chunks, rate-adaptive (`hybrid.py`).
 - "host": host DP only (the native engine end to end when built).
 - "auto": "cuda".
+
+With `-a`, `align_backend="device"`, raw 'pre' records and the "cuda"
+backend, the records are re-aligned by kernel X1 first
+(`device_align_stream`), and the rest of the run goes without `-a`.
 
 Targets outside every (V, W, K) bucket take the exact host DP and are
 counted in `PipelineStats.host_fallbacks` (SPEC.md §3.1).
@@ -44,7 +50,7 @@ from pbdagcon_tpu_torch.ops.linearize import (
     linearize,
 )
 from pbdagcon_tpu_torch import native
-from pbdagcon_tpu_torch.config import DagconConfig
+from pbdagcon_tpu_torch.config import DagconConfig, resolve_device
 from pbdagcon_tpu_torch.ops.dp import (
     LongEdgeOverflow,
     batch_scores,
@@ -78,11 +84,28 @@ class PipelineStats:
     # "ambiguous" and "overflow".
     fallback_reasons: dict[str, int] = dataclasses.field(default_factory=dict)
     # Host-clock seconds per stage of the native-loader path, summed
-    # over batches: "linearize" (producer thread), "pack", "dispatch"
-    # (upload + kernel + copy-back enqueued), "wait" (emitter blocked on
-    # the batch's CUDA event), "emit" (native backtrack + FASTA). The
-    # stages overlap across threads, so they may sum past the wall time.
+    # over batches: "align" (device re-alignment of a batch of records,
+    # `device_align_stream`, in the producer thread), "linearize"
+    # (producer thread), "pack", "dispatch" (upload + kernel + copy-back
+    # enqueued), "wait" (emitter blocked on the batch's CUDA event),
+    # "emit" (native backtrack + FASTA). The stages overlap across
+    # threads, so they may sum past the wall time.
     stage_s: dict[str, float] = dataclasses.field(default_factory=dict)
+    # Hybrid-scheduler accounting: chunks, input bytes, consensus bases
+    # and busy seconds of each worker (the device's rate is
+    # hybrid_dev_bases / hybrid_dev_busy_s).
+    hybrid_host_chunks: int = 0
+    hybrid_dev_chunks: int = 0
+    hybrid_host_bytes: int = 0
+    hybrid_dev_bytes: int = 0
+    hybrid_host_bases: int = 0
+    hybrid_dev_bases: int = 0
+    hybrid_host_busy_s: float = 0.0
+    hybrid_dev_busy_s: float = 0.0
+    # Seconds and input bytes of the device worker's first chunk, its
+    # first-use warmup included (set when the device took a chunk).
+    hybrid_dev_first_s: float = 0.0
+    hybrid_dev_first_bytes: int = 0
 
     def fallback(self, reason: str, n: int = 1) -> None:
         self.host_fallbacks += n
@@ -96,18 +119,6 @@ class PipelineStats:
 
 def resolve_backend(cfg: DagconConfig) -> str:
     return "cuda" if cfg.backend == "auto" else cfg.backend
-
-
-def _device(cfg: DagconConfig) -> torch.device:
-    """The DP's device. A CUDA device that is absent raises: the port
-    never carries on on the CPU unless asked to."""
-    dev = torch.device(cfg.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {cfg.device!r} requested but CUDA is not available "
-            "(pass device='cpu' to run the DP's plain PyTorch version)"
-        )
-    return dev
 
 
 def _bucket_of(x: int, ladder: tuple[int, ...]) -> int | None:
@@ -171,7 +182,7 @@ def _flush_bucket(
     """Run one padded bucket batch through the DP."""
     try:
         W, K = choose_layout(lins, w_ladder=cfg.w_buckets)
-        scores = batch_scores(lins, V, W, K, _device(cfg))
+        scores = batch_scores(lins, V, W, K, resolve_device(cfg.device))
     except LongEdgeOverflow:
         # Pathological targets: exact host DP, never wrong (SPEC §3.1).
         stats.fallback("long_edges", len(lins))
@@ -258,6 +269,50 @@ def run_pipeline(
         if per_bucket[V] >= cfg.batch_targets:
             yield from flush()
     yield from flush()
+
+
+def device_align_stream(
+    stream: TextIO | Iterable[str],
+    fmt: str = "pre",
+    batch_records: int = 1024,
+    device="cuda",
+    stats: PipelineStats | None = None,
+) -> Iterator[str]:
+    """Re-align raw 'pre' records on `device` in batches of
+    `batch_records` (kernel X1, `ops/align_tpu.py`); yields gapped 'pre'
+    lines in input order, for a run without `-a` downstream. Each
+    batch's seconds go to `stats.stage_s["align"]`.
+
+    Only fields 6/7 change: a raw record's start/end/tlen already
+    describe the target window, and the gapped strings keep them."""
+    from pbdagcon_tpu_torch.ops.align_tpu import align_batch
+
+    if fmt != "pre":
+        raise ValueError("device alignment requires raw 'pre' records")
+    buf: list[list[str]] = []
+
+    def flush(buf: list[list[str]]) -> Iterator[str]:
+        t0 = time.perf_counter()
+        gapped = align_batch([(f[5], f[6]) for f in buf], device)
+        if stats is not None:
+            stats.add_time("align", t0)
+        for f, (gq, gt) in zip(buf, gapped):
+            yield f"{f[0]} {f[1]} {f[2]} {f[3]} {f[4]} {gq} {gt}\n"
+
+    for line in stream:
+        if isinstance(line, bytes):  # binary file/CLI streams
+            line = line.decode()
+        f = line.split()
+        if not f:
+            continue
+        if len(f) != 7:
+            raise ValueError(f"pre record has {len(f)} fields, expected 7")
+        buf.append(f)
+        if len(buf) >= batch_records:
+            yield from flush(buf)
+            buf = []
+    if buf:
+        yield from flush(buf)
 
 
 def _native_engine(cfg: DagconConfig):
@@ -375,7 +430,7 @@ def _run_stream_native(
             stats.targets = eng.targets_done
             return stats
 
-        device = _device(cfg)
+        device = resolve_device(cfg.device)
         pin = device.type == "cuda"
 
         def submit_chunk(offset: int, count: int) -> dict:
@@ -582,13 +637,31 @@ def run_stream(
     """Reference-CLI-equivalent entry: M5/'pre' text stream in, FASTA out."""
     stats = PipelineStats()
     backend = resolve_backend(cfg)
+    if backend == "hybrid":
+        if cfg.use_native and native.available():
+            from pbdagcon_tpu_torch.hybrid import run_stream_hybrid
+
+            # A missing card raises here: never a host-only run.
+            run_stream_hybrid(
+                stream, out, cfg, stats, resolve_device(cfg.device),
+                journal=journal,
+            )
+            log.info(
+                "hybrid: targets=%d fragments=%d bases=%d batches=%d "
+                "host_fallbacks=%d",
+                stats.targets, stats.fragments, stats.consensus_bases,
+                stats.batches, stats.host_fallbacks,
+            )
+            return stats
+        # No native engine: the "cuda" backend on cfg.device.
+        backend = "cuda"
     if backend == "devbuild":
         from pbdagcon_tpu_torch.devpipe import (
             run_devbuild_native,
             run_devbuild_pipeline,
         )
 
-        device = _device(cfg)
+        device = resolve_device(cfg.device)
         if cfg.use_native and native.available():
             run_devbuild_native(stream, out, cfg, stats, device, journal=journal)
         else:
@@ -605,6 +678,17 @@ def run_stream(
             stats.batches, stats.host_fallbacks, stats.fallback_reasons,
         )
         return stats
+    if (
+        cfg.align
+        and cfg.align_backend == "device"
+        and backend == "cuda"
+        and cfg.fmt == "pre"
+    ):
+        # Device re-alignment up front; the rest runs on gapped records.
+        stream = device_align_stream(
+            stream, cfg.fmt, device=resolve_device(cfg.device), stats=stats
+        )
+        cfg = dataclasses.replace(cfg, align=False)
     if cfg.use_native and native.available():
         _run_stream_native(stream, out, cfg, backend, stats, journal=journal)
     else:

@@ -113,12 +113,13 @@ def test_cli_flags_mirror_the_reference(flag):
 
 
 def test_cli_align_backend_device_raises():
-    """The device aligner is not ported (ROADMAP A12): the flag raises
-    and never re-aligns on the host in silence."""
-    with pytest.raises(NotImplementedError, match="A12"):
+    """The device aligner implements the simple scorer only: with the
+    affine scorer the flag raises, as in the reference, and never
+    re-aligns on the host in silence."""
+    with pytest.raises(ValueError, match="simple scorer"):
         cli.main([os.path.join(ROOT, "tests", "data", "golden2.pre"),
                   "--fmt", "pre", "-a", "--align-backend", "device",
-                  "--device", "cpu"])
+                  "--align-scorer", "affine", "--device", "cpu"])
 
 
 def test_cli_rejects_bad_affine_params():

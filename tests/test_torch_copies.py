@@ -257,3 +257,105 @@ def test_native_engine_bindings(name, fmt):
             emitted, status, ne, enc[0].tobytes(), enc[1], enc[2],
         ))
     assert outs[0] == outs[1]
+
+
+def _m4_text(seed: int) -> tuple[str, dict[str, str]]:
+    rng = random.Random(seed)
+    reads = {f"r{i}": t_simulate.random_seq(rng, rng.randint(50, 200))
+             for i in range(12)}
+    lines = []
+    for _ in range(40):
+        q, t = rng.sample(sorted(reads), 2)
+        qs = rng.randint(0, 20)
+        ts = rng.randint(0, 20)
+        lines.append(
+            f"{q} {t} {rng.randint(-900, -10)} 90.0 0 {qs} "
+            f"{len(reads[q]) - rng.randint(0, 20)} {len(reads[q])} "
+            f"{rng.randint(0, 1)} {ts} {len(reads[t]) - rng.randint(0, 20)} "
+            f"{len(reads[t])} 254"
+        )
+    return "\n".join(lines) + "\n", reads
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_hgap_copy(seed):
+    from pbdagcon_tpu import hgap as j_hgap
+    from pbdagcon_tpu_torch import hgap as t_hgap
+
+    text, reads = _m4_text(seed)
+    rj = list(j_hgap.parse_m4_stream(io.StringIO(text)))
+    rt = list(t_hgap.parse_m4_stream(io.StringIO(text)))
+    assert [_fields(a) for a in rj] == [_fields(b) for b in rt]
+    for bestn in (1, 3):
+        assert [_fields(a) for a in j_hgap.filter_m4(rj, bestn)] == [
+            _fields(b) for b in t_hgap.filter_m4(rt, bestn)]
+    assert j_hgap.m4_to_pre(rj, reads) == t_hgap.m4_to_pre(rt, reads)
+    fa = "".join(f">{k} x\n{v[:30]}\n{v[30:]}\n" for k, v in reads.items())
+    assert j_hgap.read_fasta(io.StringIO(fa)) == t_hgap.read_fasta(
+        io.StringIO(fa)) == reads
+
+
+def test_dazzio_copy(tmp_path):
+    from pbdagcon_tpu import dazzio as j_dz
+    from pbdagcon_tpu_torch import dazzio as t_dz
+
+    if not t_native.available():
+        pytest.skip("native library not built")
+    rng = random.Random(3)
+    seqs = [t_simulate.random_seq(rng, n) for n in (1, 40, 333, 1000)]
+    ovls = [t_dz.Overlap(0, 1, False, 0, 250, 3, 259, 9,
+                         trace=((4, 98), (3, 101), (2, 60))),
+            t_dz.Overlap(2, 3, True, 10, 90, 0, 82, 7, trace=((5, 82),))]
+    for mod, tag in ((j_dz, "j"), (t_dz, "t")):
+        mod.write_dazz_db(str(tmp_path / f"{tag}.db"), seqs)
+        mod.write_las(str(tmp_path / f"{tag}.las"),
+                      [mod.Overlap(*dataclasses.astuple(o)) for o in ovls])
+    for suffix in (".db", ".las"):
+        with open(tmp_path / f"j{suffix}", "rb") as a, open(
+                tmp_path / f"t{suffix}", "rb") as b:
+            assert a.read() == b.read()
+    for d in (".j.idx", ".j.bps"):
+        assert (tmp_path / d).read_bytes() == (
+            tmp_path / d.replace(".j.", ".t.")).read_bytes()
+    with j_dz.DazzDb(str(tmp_path / "t.db")) as dj, t_dz.DazzDb(
+            str(tmp_path / "j.db")) as dt:
+        assert [dj.read(i) for i in range(len(dj))] == [
+            dt.read(i) for i in range(len(dt))] == seqs
+    for tr in (False, True):
+        got = t_dz.read_las(str(tmp_path / "j.las"), with_traces=tr)
+        want = j_dz.read_las(str(tmp_path / "t.las"), with_traces=tr)
+        assert [_fields(o) for o in got] == [_fields(o) for o in want]
+    assert t_dz.las_tspace(str(tmp_path / "j.las")) == j_dz.las_tspace(
+        str(tmp_path / "t.las"))
+    qs, ts = t_aligner.align_pair(seqs[2][5:300], seqs[2])
+    assert t_dz.traces_from_alignment(qs, ts, 0, 100) == (
+        j_dz.traces_from_alignment(qs, ts, 0, 100))
+
+
+def test_hybrid_helpers_copy():
+    from pbdagcon_tpu import hybrid as j_hy
+    from pbdagcon_tpu_torch import hybrid as t_hy
+
+    lines = []
+    for _, _, alns in t_simulate.simulate_targets(4, 7, 80, 4):
+        lines += [t_simulate.to_m5(a) for a in alns]
+    text = "\n".join(lines) + "\n"
+    for n in (1, 2, 5):
+        assert list(j_hy.iter_group_chunks(io.StringIO(text), "m5", n)) == (
+            list(t_hy.iter_group_chunks(io.StringIO(text), "m5", n)))
+    for cb, ramp in ((512, True), (2048, False), (1 << 20, True)):
+        assert list(j_hy.iter_group_chunks_blocks(
+            io.StringIO(text), "m5", cb, ramp)) == list(
+            t_hy.iter_group_chunks_blocks(io.StringIO(text), "m5", cb, ramp))
+    data = text.encode()
+    assert j_hy._last_group_cut(data, "m5") == t_hy._last_group_cut(data, "m5")
+    assert j_hy._sid_of_line(lines[0], "m5") == t_hy._sid_of_line(lines[0], "m5")
+    rng = random.Random(9)
+    for _ in range(300):
+        sizes = [rng.randint(1, 500) for _ in range(rng.randint(0, 6))]
+        h = rng.choice([None, 1e-6, 1e-5])
+        d = rng.choice([None, 1e-7, 1e-5, 1e-4])
+        done = rng.random() < 0.5
+        beta = rng.choice([4.0, 20.0])
+        assert j_hy.dev_should_pull(sizes, h, d, done, 1.2, beta) == (
+            t_hy.dev_should_pull(sizes, h, d, done, 1.2, beta))

@@ -634,3 +634,93 @@ def test_device_build_on_card_equals_cpu(card):
     for k, v in outs[1].items():
         assert torch.equal(outs[0][k].cpu(), v), k
     assert not outs[1][".flags"].all()
+
+
+# ---- kernel X1: the device aligner (csrc/align_scan.cu) ----
+
+def _align_pairs(case: str):
+    import random
+
+    from pbdagcon_tpu_torch.simulate import random_seq, sample_read
+
+    rng = random.Random({"random": 1, "skew": 2, "identical": 3}[case])
+    noise = NoiseProfile(sub=0.05, ins=0.12, dele=0.08)
+    pairs = []
+    if case == "random":  # B = 45: not a multiple of 32
+        for _ in range(45):
+            t = random_seq(rng, rng.randint(1, 600))
+            q, _ = sample_read(rng, t, 0, len(t), noise)
+            pairs.append((q.replace("-", "") or "A", t))
+    elif case == "skew":  # Wa past 1024 lanes: several bytes a thread
+        for k in range(6):
+            t = random_seq(rng, 1500 + 100 * k)
+            pairs.append((t[200 + 50 * k: 700], t))
+            pairs.append((t, t[100: 400 + 30 * k]))
+    elif case == "identical":
+        for n in (1, 2, 3, 17, 255, 256, 257, 1000, 2000):
+            s = random_seq(rng, n)
+            pairs.append((s, s))
+    return pairs
+
+
+@pytest.mark.parametrize("case", ["random", "skew", "identical"])
+def test_align_kernels_match_plain_versions(card, case):
+    from pbdagcon_tpu_torch.aligner import align_pair
+    from pbdagcon_tpu_torch.ops import align_cuda, align_tpu
+
+    pairs = _align_pairs(case)
+    p = align_tpu.prepare_batch(pairs)
+    if case == "skew":
+        assert p["Wa"] > 1024
+    # The kernels take any B: cut the ladder's padding off.
+    args = [torch.from_numpy(np.ascontiguousarray(p[k][: len(pairs)]))
+            .to(card) for k in ("qb", "tb_pad", "m", "n", "bw")]
+    M, Wa, dmin, L = p["M"], p["Wa"], p["dmin"], p["L"]
+    before = dict(align_cuda.launches)
+    packed = align_tpu.align_scan(*args, M, Wa, dmin)
+    moves = align_tpu.traceback(packed, args[2], args[3], M, Wa, dmin, L)
+    assert align_cuda.launches == {k: v + 1 for k, v in before.items()}
+    want = align_tpu.align_scan_plain(*args, M, Wa, dmin)
+    want_mv = align_tpu.traceback_plain(want, args[2], args[3], M, Wa, dmin, L)
+    torch.cuda.synchronize()
+    assert torch.equal(packed, want)
+    assert torch.equal(moves, want_mv)
+    assert align_tpu.align_batch(pairs, card) == [
+        align_pair(q, t) for q, t in pairs]
+
+
+def test_align_wrappers_reject_what_they_do_not_take(card):
+    from pbdagcon_tpu_torch.ops import align_cuda, align_tpu
+
+    p = align_tpu.prepare_batch(_align_pairs("identical"))
+    qb, tb, m, n, bw = (torch.from_numpy(p[k]).to(card)
+                        for k in ("qb", "tb_pad", "m", "n", "bw"))
+    M, Wa, dmin = p["M"], p["Wa"], p["dmin"]
+    before = dict(align_cuda.launches)
+    with pytest.raises(ValueError):  # tb_pad rows too short for Wa
+        align_cuda.align_scan_cuda(qb, tb[:, : M + Wa - 1].contiguous(),
+                                   m, n, bw, M, Wa, dmin)
+    with pytest.raises(ValueError):  # Wa not a multiple of 128
+        align_cuda.align_scan_cuda(qb, tb, m, n, bw, M, Wa - 4, dmin)
+    with pytest.raises(TypeError):
+        align_cuda.align_scan_cuda(qb, tb, m.long(), n, bw, M, Wa, dmin)
+    with pytest.raises(ValueError):  # a CPU tensor: no fallback
+        align_cuda.align_scan_cuda(qb.cpu(), tb.cpu(), m.cpu(), n.cpu(),
+                                   bw.cpu(), M, Wa, dmin)
+    with pytest.raises(ValueError):  # past one CTA's shared memory
+        align_cuda.align_scan_cuda(qb, tb, m, n, bw, M, 29_056, dmin)
+    packed = torch.zeros((len(p["m"]), M, Wa // 4), dtype=torch.uint8,
+                         device=card)
+    with pytest.raises(ValueError):  # packed of another width
+        align_cuda.traceback_cuda(packed[:, :, 1:].contiguous(), m, n, M,
+                                  Wa, dmin, p["L"])
+    assert align_cuda.launches == before
+
+
+def test_golden2_device_aligner_on_card(card):
+    out = io.StringIO()
+    with open(os.path.join(DATA, "golden2.pre")) as f:
+        run_stream(f, FastaWriter(out), DagconConfig(
+            min_weight=5, min_length=80, fmt="pre", align=True,
+            align_backend="device", backend="cuda", device="cuda"))
+    assert out.getvalue() == open(os.path.join(DATA, "golden2.fa")).read()

@@ -51,9 +51,10 @@ _PORT_MODULES = (
     "ops.dp", "ops.dp_cuda", "ops._build", "ops.mxu", "ops.mxu_cuda",
     "ops.devbuild_torch", "ops.devemit", "ops.pk", "ops.pk_cuda",
     "tools.prof_pk", "tools.dp_ablate", "parallel.journal",
+    "ops.align_tpu", "ops.align_cuda", "hybrid", "dazcon",
     # the copies of the JAX package's framework-free modules
     "alignment", "io", "oracle", "oracle.graph", "ops.linearize", "aligner",
-    "simulate", "selfcheck", "ops.devbuild",
+    "simulate", "selfcheck", "ops.devbuild", "hgap", "dazzio",
 )
 
 
@@ -116,7 +117,7 @@ def test_no_jax_package_import_in_port_sources():
     assert _grep(_JAX_PACKAGE_IMPORT) == []
 
 
-@pytest.mark.parametrize("backend", ["xla", "blocked", "pallas", "hybrid"])
+@pytest.mark.parametrize("backend", ["xla", "blocked", "pallas"])
 def test_tpu_backends_not_ported(backend):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DagconConfig(backend=backend)
@@ -127,9 +128,16 @@ def test_devbuild_backend_is_ported():
     assert (cfg.backend, cfg.device) == ("devbuild", "cpu")
 
 
+def test_hybrid_backend_and_device_aligner_are_ported():
+    cfg = DagconConfig(backend="hybrid", align_backend="device", device="cpu")
+    assert (cfg.backend, cfg.align_backend) == ("hybrid", "device")
+
+
 def test_config_rejects_and_defaults():
-    with pytest.raises(NotImplementedError, match="A12"):
-        DagconConfig(align_backend="device")
+    with pytest.raises(ValueError, match="simple scorer"):
+        DagconConfig(align_backend="device", align_scorer="affine")
+    with pytest.raises(ValueError):
+        DagconConfig(align_backend="gpu")
     with pytest.raises(ValueError):
         DagconConfig(backend="tpu")
     with pytest.raises(ValueError):
@@ -149,8 +157,9 @@ def test_config_from_jax():
             p.batch_targets, p.threads) == (3, 77, "pre", True, (512,), 9, 2)
     assert config_from_jax(JaxConfig(backend="host")).backend == "host"
     assert config_from_jax(JaxConfig(backend="devbuild")).backend == "devbuild"
-    with pytest.raises(NotImplementedError):
-        config_from_jax(JaxConfig(backend="hybrid"))
+    assert config_from_jax(JaxConfig(backend="hybrid")).backend == "hybrid"
+    p = config_from_jax(JaxConfig(fmt="pre", align=True, align_backend="device"))
+    assert p.align_backend == "device"
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -162,7 +171,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
-    for name in ("dp_scan", "hist_scatter", "pk_variants"):
+    for name in ("dp_scan", "hist_scatter", "pk_variants", "align_scan"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build.load(name)
 
