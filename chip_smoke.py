@@ -6,8 +6,8 @@ Phases, in order; any failure exits non-zero before the last line:
 
 1. Require CUDA, print the card's name and power limit, build the native
    engine (`make -C native`) and the kernels (`csrc/dp_scan.cu`,
-   `csrc/hist_scatter.cu`, `csrc/pk_variants.cu`, `csrc/align_scan.cu`:
-   one nvcc each, started together, sm_90a).
+   `csrc/hist_scatter.cu`, `csrc/pk_variants.cu`, `csrc/align_scan.cu`,
+   `csrc/dp_blocked.cu`: one nvcc each, started together, sm_90a).
 2. Hold the DP kernel against its plain PyTorch version on the card,
    bitwise (0 ulp): random arena batches over W in {16,32,64,128} x K in
    {8,32,128} (B not a multiple of 32, long edges, unsup nodes, -1 gaps;
@@ -76,6 +76,19 @@ Phases, in order; any failure exits non-zero before the last line:
    (device chunks, hist, scatter and dp_scan launches > 0), defaults,
    and no probe deferral; each FASTA byte-equal, the chunk split, b/s
    and the device worker's first-use warmup printed.
+11. Kernel X2 (`csrc/dp_blocked.cu`: the blocked max-plus solve's
+   compose, propagate and fill) against its plain versions: each
+   kernel's output integer-equal, the Kleene-iterated scores bitwise and
+   the flags equal, the unflagged rows bitwise equal to B1's, on random
+   batches (W 16-128, long edges), the bench batch and one target of
+   the oversize workload (64 targets x 8000 bp x 30x, seed 1234, raw
+   'pre' with -a: every target past the top V bucket); the kernels timed
+   with CUDA events in turns with their plain phases, beside B1 on the
+   bench batch. Then the oversize cell through `run_stream` on "cuda"
+   (the one-card colshard) in turns with "host", FASTA byte-equal to the
+   single-thread native engine, colshard targets and X2 launches > 0,
+   b/s and a traced run; then `backend="blocked"` on the bench cell in
+   turns with "cuda", byte-equal, with its flagged rows and launches.
 
 Then a JSON line of kernels (each with its launches on the main paths,
 max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms; hist and
@@ -101,7 +114,10 @@ SEED = 1234
 TARGETS, LENGTH, COVERAGE = 512, 1000, 30
 GRID_B, GRID_V = 37, 700
 DEVBUILD_BATCH = 128  # bench.py's batch_targets for the devbuild path
-KERNEL_SOURCES = ("dp_scan", "hist_scatter", "pk_variants", "align_scan")
+KERNEL_SOURCES = ("dp_scan", "hist_scatter", "pk_variants", "align_scan",
+                  "dp_blocked")
+# The oversize cell (phase 11): every target past the top V bucket.
+OVERSIZE_TARGETS, OVERSIZE_LENGTH = 64, 8000
 # Device-memory rate of an H100 SXM (80 GB HBM3), the `bound_ms` basis.
 HBM_BYTES_PER_S = 3.35e12
 # int32 operations per second of an H100 SXM outside the tensor cores:
@@ -1249,6 +1265,255 @@ def main() -> int:
         f"(host/device chunks {cold['host_chunks']}/{cold['dev_chunks']}, "
         f"{warm['host_chunks']}/{warm['dev_chunks']}) [{card}]")
 
+    # ---- phase 11: kernel X2 (the blocked solve), colshard, "blocked" ----
+    from pbdagcon_tpu_torch.ops import dp_blocked as dpb
+    from pbdagcon_tpu_torch.ops import dp_blocked_cuda as x2c
+
+    X2 = tuple(x2c.launches)
+    worst_x2 = 0.0
+
+    def arena_args(batch):
+        B, V, W = batch["win_count"].shape
+        K = batch["long_u"].shape[1]
+        return unpack_arena(torch.from_numpy(to_arena(batch)).to(dev),
+                            B, V, W, K)
+
+    def hold_x2(args, what) -> None:
+        """X2 against its plain version on the card: each kernel's output
+        integer-equal, the Kleene-iterated scores bitwise and the flags
+        equal, and the unflagged rows bitwise equal to B1's."""
+        nonlocal worst_x2
+        B, V, W = args[0].shape
+        K = args[4].shape[1]
+        L = dpb._blocked_L(V)
+        e_ex = dpb.exit_half_units(args[1])
+        a = dpb._rows(dpb._esc2_band(args[0], args[2], args[3]), e_ex, L)
+        M = x2c.compose_cuda(args[0], args[2], args[3], e_ex, L)
+        x_in = x2c.propagate_cuda(M)
+        s2 = x2c.fill_cuda(args[0], args[2], args[3], e_ex, x_in, L)
+        M_p = dpb._compose(a)
+        x_p = dpb._propagate(M_p)
+        ok = (torch.equal(M, M_p) and torch.equal(x_in, x_p)
+              and torch.equal(s2, dpb._fill(a, x_p)))
+        before = x2c.launches["blocked_compose"]
+        s, f = dpb.dp_scores_blocked(*args, L=L)
+        solves = x2c.launches["blocked_compose"] - before
+        s_p, f_p = dpb.dp_scores_blocked_reference(*args, L=L)
+        seq = dp_cuda.dp_scores_cuda(*args)
+        torch.cuda.synchronize()
+        ok = ok and bitwise_equal(s, s_p) and torch.equal(f, f_p)
+        err = max_abs_err(s, s_p)
+        worst_x2 = max(worst_x2, err)
+        b1_ok = bitwise_equal(s[~f], seq[~f])
+        log(f"X2 {what} B={B} V={V} W={W} K={K} L={L}: compose, propagate, "
+            f"fill {'integer-equal' if ok else 'MISMATCH'}, scores and flags "
+            f"{'bitwise' if ok else 'MISMATCH'} (max_abs_err={err}, {solves} "
+            f"solves, {int(f.sum())} rows flagged); unflagged rows against B1 "
+            f"{'bitwise' if b1_ok else 'MISMATCH'}")
+        if not (ok and b1_ok):
+            raise SystemExit(f"chip_smoke: X2 != plain version or B1 ({what})")
+
+    rng = np.random.default_rng(SEED + 11)
+    for W in (16, 32, 64, 128):
+        hold_x2(arena_args(random_batch(rng, GRID_B, 704, W, 16)), "grid")
+    with native.NativeEngine(
+        min_weight=min_weight, min_length=100, threads=threads, align=True
+    ) as eng:
+        cnt = eng.linearize_text(text, fmt="pre")
+        ns = eng.metas(cnt)[:, 0]
+        idxs = [i for i in range(cnt) if ns[i] <= v_bucket]
+        W, K, outliers = _choose_layout_native(eng, idxs, cfg)
+        idxs = [i for i in idxs if i not in outliers]
+        bench = native.pack_batch(eng, idxs, v_bucket, W, K)
+    bargs = unpack_arena(bench["_arena"].to(dev), *bench["_dims"])
+    hold_x2(bargs, "bench batch")
+
+    # The oversize workload: targets of 8 kb, every one past the V ladder.
+    t = time.time()
+    olines: list[str] = []
+    for _tid, _bb, alns in simulate_targets(
+        SEED, OVERSIZE_TARGETS, OVERSIZE_LENGTH, COVERAGE, NoiseProfile()
+    ):
+        olines.extend(to_pre_raw(a) for a in alns)
+    otext = ("\n".join(olines) + "\n").encode()
+    ocfg = dataclasses.replace(cfg, v_buckets=DagconConfig().v_buckets)
+    with native.NativeEngine(
+        min_weight=min_weight, min_length=100, threads=threads, align=True
+    ) as eng:
+        cnt = eng.linearize_text(otext, fmt="pre")
+        metas = eng.metas(cnt)
+        spans = metas[:, 1]
+        fits = [int(s) <= ocfg.w_buckets[-1] for s in spans]
+        # the first that fits a W bucket, one whose V takes L = 128 first
+        pick = min((i for i in range(cnt) if fits[i]),
+                   key=lambda i: (-(-int(metas[i, 0]) // 64) % 2, i))
+        on, ospan = int(metas[pick, 0]), int(spans[pick])
+        oV = -(-on // 64) * 64
+        oW = next(w for w in ocfg.w_buckets if ospan <= w)
+        one = native.pack_batch(eng, [pick], oV, oW, 1)
+    log(f"oversize workload: {OVERSIZE_TARGETS} targets x {OVERSIZE_LENGTH} bp "
+        f"x {COVERAGE}x, {len(otext) / 1e6:.1f} MB in {time.time() - t:.1f}s; "
+        f"n {int(metas[:, 0].min())}-{int(metas[:, 0].max())} (past the top "
+        f"V bucket {ocfg.v_buckets[-1]}: {int((metas[:, 0] > ocfg.v_buckets[-1]).sum())}), "
+        f"span <= {ocfg.w_buckets[-1]}: {sum(fits)} (spans of the rest: "
+        f"{sorted(int(s) for s, f in zip(spans, fits) if not f)})")
+    oargs = unpack_arena(one["_arena"].to(dev), 1, oV, oW, 1)
+    hold_x2(oargs, f"oversize target (n={on}, span={ospan})")
+    del one
+
+    def x2_times(args, what) -> dict:
+        """Each X2 kernel's device ms per call (CUDA events, in turns
+        with its plain phase), its bound, and the solve's sum."""
+        B, V, W = args[0].shape
+        L = dpb._blocked_L(V)
+        G, Wp = V // L, W + 1
+        e_ex = dpb.exit_half_units(args[1])
+        a = dpb._rows(dpb._esc2_band(args[0], args[2], args[3]), e_ex, L)
+        M = x2c.compose_cuda(args[0], args[2], args[3], e_ex, L)
+        x_in = x2c.propagate_cuda(M)
+        fns = {
+            "blocked_compose": (
+                lambda: x2c.compose_cuda(args[0], args[2], args[3], e_ex, L),
+                lambda: dpb._compose(a)),
+            "blocked_propagate": (lambda: x2c.propagate_cuda(M),
+                                  lambda: dpb._propagate(M)),
+            "blocked_fill": (
+                lambda: x2c.fill_cuda(args[0], args[2], args[3], e_ex, x_in, L),
+                lambda: dpb._fill(a, x_in)),
+        }
+        # Inputs read once, outputs written once; int32 operations: an
+        # add and a max per term, (W+1)^2 terms a node (compose) or a
+        # block (propagate), W+1 a node (fill).
+        band = nbytes(args[0], args[2], args[3], e_ex)
+        s2_bytes = B * V * 4
+        work = {"blocked_compose": (band + nbytes(M), 2 * Wp * Wp * B * V),
+                "blocked_propagate": (nbytes(M, x_in), 2 * Wp * Wp * B * G),
+                "blocked_fill": (band + nbytes(x_in) + s2_bytes, 2 * Wp * B * V)}
+        out = {}
+        for name, (k_fn, p_fn) in fns.items():
+            pa = time_ms(p_fn, 1)
+            ka = time_ms(k_fn, 10)
+            kb = time_ms(k_fn, 10)
+            pb = time_ms(p_fn, 1)
+            nb_, ops = work[name]
+            t_b, t_o = bound_ms(nb_), ops / INT32_OPS_PER_S * 1e3
+            out[name] = {"ms": (ka + kb) / 2, "plain_ms": (pa + pb) / 2,
+                         "bound_ms": max(t_b, t_o),
+                         "bound_by": "bytes" if t_b >= t_o else "operations"}
+            log(f"{name} at {what} B={B} V={V} W={W} L={L}: kernel {ka} / {kb} "
+                f"ms, plain PyTorch {pa} / {pb} ms, bound {max(t_b, t_o)} ms "
+                f"(bytes {nb_} -> {t_b} ms, int32 ops {ops} -> {t_o} ms) [{card}]")
+        t_b = bound_ms(band + s2_bytes)
+        t_o = sum(w[1] for w in work.values()) / INT32_OPS_PER_S * 1e3
+        out["solve"] = {"ms": sum(out[n]["ms"] for n in X2),
+                        "bound_ms": max(t_b, t_o)}
+        return out
+
+    x2_bench = x2_times(bargs, "the bench batch")
+    b1_a = time_ms(lambda: dp_cuda.dp_scores_cuda(*bargs), 20)
+    sv = lambda: x2c.solve_band_cuda(
+        bargs[0], bargs[2], bargs[3], dpb.exit_half_units(bargs[1]),
+        dpb._blocked_L(bargs[0].shape[1]))
+    sv_a = time_ms(sv, 10)
+    sv_b = time_ms(sv, 10)
+    b1_b = time_ms(lambda: dp_cuda.dp_scores_cuda(*bargs), 20)
+    log(f"X2 solve at the bench batch {tuple(bench['_dims'])}: the three "
+        f"kernels {x2_bench['solve']['ms']} ms summed, {sv_a} / {sv_b} ms "
+        f"as one solve (bound {x2_bench['solve']['bound_ms']} ms); B1 "
+        f"{b1_a} / {b1_b} ms on the same batch [{card}]")
+    x2_over = x2_times(oargs, f"the oversize target (n={on})")
+    log(f"X2 solve at the oversize target: {x2_over['solve']['ms']} ms "
+        f"summed (bound {x2_over['solve']['bound_ms']} ms) [{card}]")
+    del bargs, oargs, bench
+
+    def x2_zero() -> None:
+        for k in X2:
+            x2c.launches[k] = 0
+        dp_cuda.launches = 0
+
+    def run_text(data, c):
+        out = io.StringIO()
+        t0 = time.time()
+        st = run_stream(io.TextIOWrapper(io.BytesIO(data)), FastaWriter(out), c)
+        torch.cuda.synchronize()
+        return time.time() - t0, st, out.getvalue()
+
+    # The oversize cell at full size: cuda and host in turns.
+    t = time.time()
+    with native.NativeEngine(
+        min_weight=min_weight, min_length=100, threads=1, align=True
+    ) as eng:
+        ofasta_host = eng.consensus_text(otext, fmt="pre")
+    o1_dt = time.time() - t
+    obases = sum(len(l) for l in ofasta_host.splitlines()
+                 if not l.startswith(">"))
+    ohost = dataclasses.replace(ocfg, backend="host")
+    run_text(otext, ocfg)  # warm-up
+    oruns = {"cuda": [], "host": []}
+    colshard_launches = dict.fromkeys((*X2, "dp_scan"), 0)
+    for which in ("cuda", "host", "host", "cuda", "cuda", "host"):
+        x2_zero()
+        r = run_text(otext, ocfg if which == "cuda" else ohost)
+        if r[2] != ofasta_host:
+            raise SystemExit(f"chip_smoke: oversize cell FASTA ({which}) != "
+                             "single-core C++")
+        oruns[which].append(r)
+        if which == "cuda":
+            for k in X2:
+                colshard_launches[k] += x2c.launches[k]
+            colshard_launches["dp_scan"] += dp_cuda.launches
+    ost = oruns["cuda"][-1][1]
+    if ost.colshard == 0 or any(colshard_launches[k] == 0 for k in X2):
+        raise SystemExit(f"chip_smoke: the oversize cell never ran colshard "
+                         f"({ost.colshard} targets, {colshard_launches})")
+    omed = {k: sorted(r[0] for r in v)[1] for k, v in oruns.items()}
+    log(f"oversize cell: targets={ost.targets} colshard={ost.colshard} "
+        f"host 'oversize'={ost.fallback_reasons.get('oversize', 0)} "
+        f"batches={ost.batches}; launches over 3 runs {colshard_launches}; "
+        f"FASTA byte-equal to the single-thread native engine [{card}]")
+    log(f"oversize cell end-to-end: cuda {obases / omed['cuda']:.1f} b/s, host "
+        f"{obases / omed['host']:.1f} b/s (medians of 3, in turns; walls "
+        f"{[round(r[0], 4) for r in oruns['cuda']]} / "
+        f"{[round(r[0], 4) for r in oruns['host']]} s); single-core C++ "
+        f"{obases / o1_dt:.1f} b/s [{card}]")
+    stages = ", ".join(f"{k} {v:.4f}" for k, v in ost.stage_s.items())
+    log(f"oversize cell host-clock seconds by stage (last cuda run): {stages}")
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    ) as prof:
+        traced_dt, _, traced_fa = run_text(otext, ocfg)
+    if traced_fa != ofasta_host:
+        raise SystemExit("chip_smoke: traced oversize FASTA != single-core C++")
+    trace_report("oversize traced run", prof, traced_dt, card, top=6)
+
+    # backend="blocked" on the bench cell, in turns with "cuda".
+    bcfg = dataclasses.replace(cfg, backend="blocked")
+    run_text(text, bcfg)  # warm-up
+    bruns = {"blocked": [], "cuda": []}
+    blocked_launches = dict.fromkeys((*X2, "dp_scan"), 0)
+    for which in ("blocked", "cuda", "cuda", "blocked", "blocked", "cuda"):
+        x2_zero()
+        r = run_text(text, bcfg if which == "blocked" else cfg)
+        if r[2] != fasta_host:
+            raise SystemExit(f"chip_smoke: bench FASTA ({which}) != "
+                             "single-core C++")
+        bruns[which].append(r)
+        if which == "blocked":
+            for k in X2:
+                blocked_launches[k] += x2c.launches[k]
+            blocked_launches["dp_scan"] += dp_cuda.launches
+    if any(blocked_launches[k] == 0 for k in X2):
+        raise SystemExit(f"chip_smoke: backend='blocked' never ran X2 "
+                         f"({blocked_launches})")
+    bst = bruns["blocked"][-1][1]
+    bmed = {k: sorted(r[0] for r in v)[1] for k, v in bruns.items()}
+    log(f"blocked on the bench cell: batches={bst.batches} rows flagged and "
+        f"re-run through B1 {[r[1].blocked_reruns for r in bruns['blocked']]}; "
+        f"launches over 3 runs {blocked_launches}; {bases / bmed['blocked']:.1f} "
+        f"b/s against cuda {bases / bmed['cuda']:.1f} (medians of 3, in turns; "
+        f"walls {[round(r[0], 4) for r in bruns['blocked']]} / "
+        f"{[round(r[0], 4) for r in bruns['cuda']]} s); FASTA byte-equal [{card}]")
+
     # ---- results ----
     log(card)
     hist_ms, hist_plain, hist_lib, hist_bound = timed["hist"]
@@ -1258,9 +1523,12 @@ def main() -> int:
         "route": "cuda",
         "source": "pbdagcon_tpu_torch/csrc/dp_scan.cu",
         "replaces": "pbdagcon_tpu/ops/dp_pallas.py:40",
-        "launches": cuda_path_launches + dev_launches["dp_scan"],
+        "launches": cuda_path_launches + dev_launches["dp_scan"]
+        + blocked_launches["dp_scan"] + colshard_launches["dp_scan"],
         "launches_by_path": {"cuda": cuda_path_launches,
-                             "devbuild": dev_launches["dp_scan"]},
+                             "devbuild": dev_launches["dp_scan"],
+                             "blocked": blocked_launches["dp_scan"],
+                             "colshard": colshard_launches["dp_scan"]},
         "max_abs_err": worst,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -1329,7 +1597,26 @@ def main() -> int:
         "bound_by": x1[name]["bound_by"],
         # No one PyTorch call computes a banded alignment scan or walk.
         "library_ms": None,
-    } for name, line in (("align_scan", 88), ("align_traceback", 47))]}),
+    } for name, line in (("align_scan", 88), ("align_traceback", 47))] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "pbdagcon_tpu_torch/csrc/dp_blocked.cu",
+        "replaces": f"pbdagcon_tpu/ops/dp_blocked.py:{line} (_solve_band, "
+                    f":104); pbdagcon_tpu/parallel/colshard.py:{cs_line}",
+        "launches": colshard_launches[name] + blocked_launches[name],
+        "launches_by_path": {"colshard": colshard_launches[name],
+                             "blocked": blocked_launches[name]},
+        "max_abs_err": worst_x2,
+        "ms": x2_bench[name]["ms"],
+        "plain_ms": x2_bench[name]["plain_ms"],
+        "bound_ms": x2_bench[name]["bound_ms"],
+        "bound_by": x2_bench[name]["bound_by"],
+        # No one PyTorch call computes a max-plus solve.
+        "library_ms": None,
+        "oversize_call": x2_over[name],
+    } for name, line, cs_line in (("blocked_compose", 121, 46),
+                                  ("blocked_propagate", 137, 89),
+                                  ("blocked_fill", 152, 116))]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -6,7 +6,9 @@ Reference flags: positional M5/'pre' input (or stdin), `-c` min coverage
 re-align. `--align-scorer`, `--affine-params` and `--align-backend` are
 the JAX package's -a knobs, with its names, choices and defaults;
 `--align-backend device` re-aligns raw 'pre' records in kernel X1 on the
-"cuda" backend. `--backend devbuild` runs the graph build, the DP and the
+"cuda" and "blocked" backends. `--backend blocked` runs the batches that
+the int32 bound admits through the blocked max-plus solve (kernel X2).
+`--backend devbuild` runs the graph build, the DP and the
 backtrack on the device; `--backend hybrid` runs the host engine and the
 devbuild pipeline side by side on group-aligned chunks. `--device` picks the device (default cuda;
 "cpu" runs the kernels' plain PyTorch versions). `--distributed` comes with the
@@ -64,9 +66,12 @@ def build_parser() -> argparse.ArgumentParser:
         "--fmt", choices=("m5", "pre"), default="m5", help="input format"
     )
     p.add_argument(
-        "--backend", choices=("auto", "cuda", "devbuild", "hybrid", "host"),
+        "--backend",
+        choices=("auto", "cuda", "blocked", "devbuild", "hybrid", "host"),
         default="auto",
-        help="consensus backend: cuda (batched DP kernel), devbuild "
+        help="consensus backend: cuda (batched DP kernel), blocked (the "
+        "blocked max-plus solve where the int32 bound admits a batch, "
+        "flagged rows through the DP kernel), devbuild "
         "(graph build, DP and backtrack on the device), hybrid (host "
         "engine and devbuild side by side, rate-adaptive), host (native "
         "engine only); auto = cuda",

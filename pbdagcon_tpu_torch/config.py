@@ -4,7 +4,9 @@
 Same reference knobs and defaults as `pbdagcon_tpu.config.DagconConfig`
 (`-c` min coverage 8, `-m` min length 500, `-j` threads 4, `-t` trim 0).
 The execution knobs differ: the port's backends are "cuda" (the banded
-DP runs in the hand-written kernel, `ops/dp_cuda.py`), "devbuild" (graph
+DP runs in the hand-written kernel, `ops/dp_cuda.py`), "blocked" (as
+"cuda", with the batches the int32 bound admits in the blocked max-plus
+solve, `ops/dp_blocked.py`, and its flagged rows in the scan), "devbuild" (graph
 build, DP and backtrack on the device, `devpipe.py`), "hybrid" (the host
 engine and the devbuild pipeline on group-aligned chunks side by side,
 `hybrid.py`) and "host" (the native engine runs everything); "auto" means
@@ -38,9 +40,6 @@ def resolve_device(device):
 _NOT_PORTED = {
     "xla": "the TPU forms of the DP are one kernel here: use "
     "backend='cuda' (ROADMAP B1)",
-    "blocked": "the TPU forms of the DP are one kernel here: use "
-    "backend='cuda' (ROADMAP B1; the blocked solve returns with "
-    "colshard, A14)",
     "pallas": "the TPU forms of the DP are one kernel here: use "
     "backend='cuda' (ROADMAP B1)",
 }
@@ -59,8 +58,9 @@ class DagconConfig:
     # Re-align raw (ungapped) q/t pairs before graph building (dagcon -a).
     align: bool = False
     # Where -a alignment runs: "host" (threaded C++ banded DP) or
-    # "device" (kernel X1, `ops/align_tpu.py`; the "cuda" backend on raw
-    # 'pre' records only, as in the reference). Both are exact.
+    # "device" (kernel X1, `ops/align_tpu.py`; the "cuda" and "blocked"
+    # backends on raw 'pre' records only, as in the reference). Both are
+    # exact.
     align_backend: str = "host"
     # -a scorer: "simple" (SPEC §1.5) or "affine" (SPEC §1.6).
     align_scorer: str = "simple"
@@ -71,9 +71,10 @@ class DagconConfig:
     w_buckets: tuple[int, ...] = (16, 32, 64, 128)
     # Targets per device dispatch.
     batch_targets: int = 128
-    # "cuda" (device DP kernel), "devbuild" (all on the device), "hybrid"
-    # (host engine + devbuild side by side), "host" (all native) or
-    # "auto" (= cuda).
+    # "cuda" (device DP kernel), "blocked" (the blocked max-plus solve
+    # where the int32 bound admits a batch, else the DP kernel),
+    # "devbuild" (all on the device), "hybrid" (host engine + devbuild
+    # side by side), "host" (all native) or "auto" (= cuda).
     backend: str = "auto"
     # Device of the "cuda" and "devbuild" backends: a CUDA device, or
     # "cpu" for the kernels' plain PyTorch versions.
@@ -109,7 +110,9 @@ class DagconConfig:
                 f"backend {self.backend!r} is not ported: "
                 f"{_NOT_PORTED[self.backend]}"
             )
-        if self.backend not in ("auto", "cuda", "devbuild", "hybrid", "host"):
+        if self.backend not in (
+            "auto", "cuda", "blocked", "devbuild", "hybrid", "host"
+        ):
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.min_weight < 0 or self.min_length < 0 or self.trim < 0:
             raise ValueError("min_weight/min_length/trim must be >= 0")

@@ -14,8 +14,9 @@ import torch
 
 from pbdagcon_tpu_torch.config import DagconConfig
 
-# The JAX package's TPU forms of the DP all become the CUDA kernel.
-_BACKENDS = {"xla": "cuda", "blocked": "cuda", "pallas": "cuda"}
+# The JAX package's scan forms of the DP become the CUDA kernel; its
+# blocked solve is the port's too.
+_BACKENDS = {"xla": "cuda", "pallas": "cuda"}
 
 
 def config_from_jax(cfg, device: str = "cuda") -> DagconConfig:

@@ -1,5 +1,6 @@
 """Build and load the port's CUDA kernels (`csrc/dp_scan.cu`,
-`csrc/hist_scatter.cu`, `csrc/pk_variants.cu`, `csrc/align_scan.cu`).
+`csrc/hist_scatter.cu`, `csrc/pk_variants.cu`, `csrc/align_scan.cu`,
+`csrc/dp_blocked.cu`).
 
 `nvcc` compiles `csrc/<name>.cu` at first use into a shared library with
 a plain C interface, in `pbdagcon_tpu_torch/_build/` (listed in
@@ -131,6 +132,17 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.dagcon_align_traceback.restype = ci
         # (packed, m, n, moves, B, M, Wa, dmin, L, stream)
         lib.dagcon_align_traceback.argtypes = [vp] * 4 + [ci] * 5 + [vp]
+    if name == "dp_blocked":
+        for fn, argtypes in (
+            # (win, cov, unsup, eex, M, B, V, W, L, stream)
+            ("dagcon_blocked_compose", [vp] * 5 + [ci] * 4 + [vp]),
+            # (M, x_in, B, G, W, stream)
+            ("dagcon_blocked_propagate", [vp] * 2 + [ci] * 3 + [vp]),
+            # (win, cov, unsup, eex, x_in, s2, B, V, W, L, stream)
+            ("dagcon_blocked_fill", [vp] * 6 + [ci] * 4 + [vp]),
+        ):
+            getattr(lib, fn).restype = ci
+            getattr(lib, fn).argtypes = argtypes
     lib.dagcon_cuda_error_string.restype = ctypes.c_char_p
     lib.dagcon_cuda_error_string.argtypes = [ci]
 

@@ -16,9 +16,11 @@ fallback from one to the other.
 
 The numpy helpers (`choose_layout`, `pad_batch`, `arena_layout`) are
 ports of the JAX package's, without jax. The TPU-link workarounds
-(score compression, the edge-CSR arena, the int8 squeeze, the blocked
-solve routing) are left out: on a directly attached card the arena is
-one pinned-memory copy.
+(score compression, the edge-CSR arena, the int8 squeeze, the `xla`
+backend's routing of narrow-band batches through the blocked solve) are
+left out: on a directly attached card the arena is one pinned-memory
+copy. The `blocked` backend's routing is `submit_arena_scores(...,
+blocked=True)` (`ops/dp_blocked.py`).
 """
 
 from __future__ import annotations
@@ -519,11 +521,13 @@ def batch_scores(
 
 class ScoresFuture:
     """Scores of one dispatched batch. `result()` waits for the batch's
-    CUDA event (if any) and returns [B, V] f32 as numpy."""
+    CUDA event (if any) and returns [B, V] f32 as numpy. `reruns`: the
+    rows that the blocked solve flagged and the scan re-ran."""
 
-    def __init__(self, host: torch.Tensor, event=None):
+    def __init__(self, host: torch.Tensor, event=None, reruns: int = 0):
         self._host = host
         self._event = event
+        self.reruns = reruns
 
     def result(self) -> np.ndarray:
         if self._event is not None:
@@ -531,20 +535,47 @@ class ScoresFuture:
         return self._host.numpy()
 
 
-def submit_arena_scores(
-    arena: torch.Tensor, dims: tuple[int, int, int, int], device
-) -> ScoresFuture:
-    """Upload a packed arena (pinned host memory for CUDA), run the DP
-    and start the copy of the scores back, all on the current stream.
-    Nothing waits here; the future's `result()` does."""
-    B, V, W, K = dims
-    device = torch.device(device)
+def _submit(args, device: torch.device, blocked: bool) -> ScoresFuture:
+    """Run the DP on `args` (on `device`) and start the copy of the
+    scores back. With `blocked` (the caller checked
+    `dp_blocked.blocked_eligible`), the blocked solve takes the batch and
+    its flagged rows re-run through `dp_scores`; it waits on the device
+    after each of its solves."""
+    if blocked:
+        from pbdagcon_tpu_torch.ops.dp_blocked import _blocked_L, blocked_scores
+
+        s, reruns = blocked_scores(*args, L=_blocked_L(args[0].shape[1]))
+    else:
+        s, reruns = dp_scores(*args), 0
     if device.type != "cuda":
-        return ScoresFuture(dp_scores(*unpack_arena(arena, B, V, W, K)))
-    dev = arena.to(device, non_blocking=True)
-    s = dp_scores(*unpack_arena(dev, B, V, W, K))
+        return ScoresFuture(s, reruns=reruns)
     host = torch.empty(s.shape, dtype=s.dtype, pin_memory=True)
     host.copy_(s, non_blocking=True)
     ev = torch.cuda.Event()
     ev.record(torch.cuda.current_stream(device))
-    return ScoresFuture(host, ev)
+    return ScoresFuture(host, ev, reruns)
+
+
+def submit_arena_scores(
+    arena: torch.Tensor, dims: tuple[int, int, int, int], device,
+    blocked: bool = False,
+) -> ScoresFuture:
+    """Upload a packed arena (pinned host memory for CUDA), run the DP
+    and start the copy of the scores back, all on the current stream.
+    Nothing waits here (but the blocked solve, see `_submit`); the
+    future's `result()` does."""
+    B, V, W, K = dims
+    device = torch.device(device)
+    if device.type == "cuda":
+        arena = arena.to(device, non_blocking=True)
+    return _submit(unpack_arena(arena, B, V, W, K), device, blocked)
+
+
+def submit_batch_scores(
+    batch: dict[str, np.ndarray], device, blocked: bool = False
+) -> ScoresFuture:
+    """`submit_arena_scores` for a packed batch of numpy arrays
+    (`pad_batch`)."""
+    device = torch.device(device)
+    t = batch_to_torch(batch, device)
+    return _submit([t[k] for k in DP_ARGS], device, blocked)

@@ -11,6 +11,9 @@ whatever the backend.
 Backends (`DagconConfig.backend`):
 - "cuda": batched DP in the hand-written kernel (`ops/dp_cuda.py`) on
   `cfg.device`; with device "cpu", its plain PyTorch version.
+- "blocked": as "cuda", but each bucket batch that the int32 bound
+  admits takes the blocked max-plus solve (kernel X2,
+  `ops/dp_blocked.py`); the rows it flags re-run through the scan.
 - "devbuild": graph build, DP and backtrack all on `cfg.device`
   (`devpipe.py`); the host encodes and assembles the fragments.
 - "hybrid": the native engine and the devbuild pipeline side by side on
@@ -19,10 +22,14 @@ Backends (`DagconConfig.backend`):
 - "auto": "cuda".
 
 With `-a`, `align_backend="device"`, raw 'pre' records and the "cuda"
-backend, the records are re-aligned by kernel X1 first
+or "blocked" backend, the records are re-aligned by kernel X1 first
 (`device_align_stream`), and the rest of the run goes without `-a`.
 
-Targets outside every (V, W, K) bucket take the exact host DP and are
+On the native-loader path, a target past the top V bucket takes the
+column-sharded DP on the card (`parallel/colshard.py`, X2 at B = 1) when
+the reference would: a W bucket holds its span and the int32 bound
+holds. Other targets outside every (V, W, K) bucket, and oversized ones
+whose scores cross the f32-parity line, take the exact host DP and are
 counted in `PipelineStats.host_fallbacks` (SPEC.md §3.1).
 """
 
@@ -53,10 +60,17 @@ from pbdagcon_tpu_torch import native
 from pbdagcon_tpu_torch.config import DagconConfig, resolve_device
 from pbdagcon_tpu_torch.ops.dp import (
     LongEdgeOverflow,
-    batch_scores,
     choose_layout,
+    pad_batch,
     submit_arena_scores,
+    submit_batch_scores,
 )
+from pbdagcon_tpu_torch.ops.dp_blocked import (
+    blocked_eligible,
+    blocked_safe,
+    max_escore,
+)
+from pbdagcon_tpu_torch.parallel.colshard import colsharded_scores
 
 log = logging.getLogger("pbdagcon_tpu_torch")
 
@@ -72,6 +86,11 @@ class PipelineStats:
     batches: int = 0
     pad_nodes: int = 0  # padded - real nodes (pad-waste measure)
     real_nodes: int = 0
+    # Targets past the V ladder whose DP ran column-sharded on the
+    # device (each also counts one batch), and rows that the blocked
+    # solve flagged and re-ran through the scan.
+    colshard: int = 0
+    blocked_reruns: int = 0
     # Records skipped (raw pair without -a) and groups dropped (backbone
     # recovery/build failed): input is never lost invisibly.
     dropped_records: int = 0
@@ -87,8 +106,11 @@ class PipelineStats:
     # over batches: "align" (device re-alignment of a batch of records,
     # `device_align_stream`, in the producer thread), "linearize"
     # (producer thread), "pack", "dispatch" (upload + kernel + copy-back
-    # enqueued), "wait" (emitter blocked on the batch's CUDA event),
-    # "emit" (native backtrack + FASTA). The stages overlap across
+    # enqueued; with the blocked solve, its Kleene rounds too),
+    # "colshard" (targets past the V ladder: pack, solve and fetch, or
+    # the eligibility check that sends them to the host DP), "wait"
+    # (emitter blocked on the batch's CUDA event), "emit" (native
+    # backtrack + FASTA). The stages overlap across
     # threads, so they may sum past the wall time.
     stage_s: dict[str, float] = dataclasses.field(default_factory=dict)
     # Hybrid-scheduler accounting: chunks, input bytes, consensus bases
@@ -182,7 +204,14 @@ def _flush_bucket(
     """Run one padded bucket batch through the DP."""
     try:
         W, K = choose_layout(lins, w_ladder=cfg.w_buckets)
-        scores = batch_scores(lins, V, W, K, resolve_device(cfg.device))
+        batch = pad_batch(lins, V, W, K)
+        fut = submit_batch_scores(
+            batch, resolve_device(cfg.device),
+            blocked=resolve_backend(cfg) == "blocked"
+            and blocked_eligible(batch),
+        )
+        stats.blocked_reruns += fut.reruns
+        scores = fut.result()
     except LongEdgeOverflow:
         # Pathological targets: exact host DP, never wrong (SPEC §3.1).
         stats.fallback("long_edges", len(lins))
@@ -330,6 +359,38 @@ def _native_engine(cfg: DagconConfig):
     )
 
 
+def _colshard_oversize(
+    eng, idx: int, n: int, span: int, cfg: DagconConfig, device
+) -> np.ndarray | None:
+    """Column-sharded DP on `device` for retained target `idx`, past
+    every V bucket (the reference's `_colshard_oversize` with a mesh of
+    one card). Returns scores[n + 1], or None when the reference would
+    take the host DP: no W bucket holds the span (long edges), counts
+    past the packer's int16 format, the int32 bound exceeded, or scores
+    past the f32-parity line. Any other failure raises."""
+    W = next((w for w in cfg.w_buckets if span <= w), None)
+    if W is None:
+        return None
+    V = -(-max(n, 1) // 64) * 64
+    try:
+        batch = native.pack_batch(eng, [idx], V, W, 1)
+    except LongEdgeOverflow:
+        return None
+    if not blocked_safe(max_escore(batch), V):
+        return None
+    try:
+        s = colsharded_scores(
+            batch["win_count"][0], batch["exit_count"][0], batch["cov"][0],
+            batch["unsup"][0], device,
+        )
+    except OverflowError:  # past the f32-parity line: exact host DP
+        return None
+    full = np.empty(n + 1, dtype=np.float32)
+    full[:n] = s[:n]
+    full[n] = 0.0  # the exit node
+    return full
+
+
 def _choose_layout_native(
     eng, idxs: list[int], cfg: DagconConfig
 ) -> tuple[int, int, set[int]]:
@@ -444,11 +505,22 @@ def _run_stream_native(
             futures: list[tuple[list[int], object]] = []
             for V, idxs in buckets.items():
                 if V < 0:
-                    # Outside every V bucket: exact host DP (the
-                    # multi-device column-sharded DP is ROADMAP A14).
+                    # Outside every V bucket: the column-sharded DP on
+                    # the device where eligible, else the exact host DP.
                     for i in idxs:
-                        stats.fallback("oversize")
-                        scores[i] = eng.target_scores(offset + i, int(ns[i]))
+                        t0 = time.perf_counter()
+                        s = _colshard_oversize(
+                            eng, offset + i, int(ns[i]), int(metas[i, 1]),
+                            cfg, device,
+                        )
+                        stats.add_time("colshard", t0)
+                        if s is None:
+                            stats.fallback("oversize")
+                            s = eng.target_scores(offset + i, int(ns[i]))
+                        else:
+                            stats.batches += 1
+                            stats.colshard += 1
+                        scores[i] = s
                     continue
                 abs_idxs = [offset + i for i in idxs]
                 try:
@@ -467,8 +539,11 @@ def _run_stream_native(
                         stats.add_time("pack", t0)
                         t0 = time.perf_counter()
                         fut = submit_arena_scores(
-                            batch["_arena"], batch["_dims"], device
+                            batch["_arena"], batch["_dims"], device,
+                            blocked=backend == "blocked"
+                            and blocked_eligible(batch),
                         )
+                        stats.blocked_reruns += fut.reruns
                         stats.add_time("dispatch", t0)
                         stats.batches += 1
                         futures.append((idxs, fut))
@@ -681,7 +756,7 @@ def run_stream(
     if (
         cfg.align
         and cfg.align_backend == "device"
-        and backend == "cuda"
+        and backend in ("cuda", "blocked")
         and cfg.fmt == "pre"
     ):
         # Device re-alignment up front; the rest runs on gapped records.

@@ -359,3 +359,18 @@ def test_hybrid_helpers_copy():
         beta = rng.choice([4.0, 20.0])
         assert j_hy.dev_should_pull(sizes, h, d, done, 1.2, beta) == (
             t_hy.dev_should_pull(sizes, h, d, done, 1.2, beta))
+
+
+def test_blocked_solve_constants_copy():
+    """The blocked solve's constants, block length and int32 bound are
+    the reference's (`pbdagcon_tpu/ops/dp_blocked.py`, `ops/dp.py`)."""
+    from pbdagcon_tpu.ops import dp as j_dp
+    from pbdagcon_tpu.ops import dp_blocked as j_bl
+    from pbdagcon_tpu_torch.ops import dp_blocked as t_bl
+
+    for name in ("SENT", "_REAL_MIN", "_F32_LIMIT", "_PENALTY2"):
+        assert int(getattr(j_bl, name)) == getattr(t_bl, name), name
+    for v in (64, 128, 8128, 8192, 8256, 16384, 34816):
+        assert j_dp._blocked_L(v) == t_bl._blocked_L(v)
+        for esc in (10.0, 760.0, 8192.0, 20000.0):
+            assert j_bl.blocked_safe(esc, v) == t_bl.blocked_safe(esc, v)

@@ -724,3 +724,74 @@ def test_golden2_device_aligner_on_card(card):
             min_weight=5, min_length=80, fmt="pre", align=True,
             align_backend="device", backend="cuda", device="cuda"))
     assert out.getvalue() == open(os.path.join(DATA, "golden2.fa")).read()
+
+
+@pytest.mark.parametrize("W", [16, 32, 64, 128])
+@pytest.mark.parametrize("V,K", [(704, 16), (8192, 0)])
+def test_blocked_kernels_match_plain_version(card, W, V, K):
+    """Kernel X2 (compose, propagate, fill) against its plain version:
+    one solve's half-unit integers equal; the Kleene-iterated scores
+    bitwise and the flags equal; unflagged rows equal B1's."""
+    from pbdagcon_tpu_torch.ops import dp_blocked as tbl
+    from pbdagcon_tpu_torch.ops import dp_blocked_cuda
+
+    rng = np.random.default_rng(100 * W + K)
+    batch = tdp.random_batch(rng, 5 if V > 1000 else 37, V, W, K)
+    t = batch_to_torch(batch, card)
+    args = [t[k] for k in tdp.DP_ARGS]
+    L = tbl._blocked_L(V)
+    e_ex = tbl.exit_half_units(args[1])
+    before = dict(dp_blocked_cuda.launches)
+    got = tbl.solve_band(args[0], args[2], args[3], e_ex, L)
+    assert all(dp_blocked_cuda.launches[k] == before[k] + 1 for k in before)
+    want = tbl.solve_band_reference(args[0], args[2], args[3], e_ex, L)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    s, f = tbl.dp_scores_blocked(*args, L=L)
+    s_plain, f_plain = tbl.dp_scores_blocked_reference(*args, L=L)
+    assert _same_bits(s, s_plain) and torch.equal(f, f_plain)
+    seq = tdp.dp_scores(*args)
+    ok = ~f
+    assert _same_bits(s[ok], seq[ok])
+
+
+def test_colshard_and_blocked_backend_on_card(card):
+    """The oversize route (v_buckets below golden1's targets) and
+    backend="blocked" on the card: golden1 byte for byte, X2 launched."""
+    from pbdagcon_tpu_torch.ops import dp_blocked_cuda
+
+    if not native.available():
+        pytest.skip("native library not built")
+    for kw, what in ((dict(backend="cuda", v_buckets=(1200,)), "colshard"),
+                     (dict(backend="blocked"), "batches")):
+        before = dp_blocked_cuda.launches["blocked_compose"]
+        out = io.StringIO()
+        with open(os.path.join(DATA, "golden1.m5")) as f:
+            stats = run_stream(f, FastaWriter(out), DagconConfig(
+                min_weight=6, min_length=100, device="cuda", **kw))
+        assert out.getvalue() == open(os.path.join(DATA, "golden1.fa")).read()
+        assert getattr(stats, what) > 0
+        assert dp_blocked_cuda.launches["blocked_compose"] > before
+
+
+def test_blocked_wrappers_reject_what_they_do_not_take(card):
+    from pbdagcon_tpu_torch.ops import dp_blocked as tbl
+    from pbdagcon_tpu_torch.ops import dp_blocked_cuda as C
+
+    rng = np.random.default_rng(3)
+    t = batch_to_torch(tdp.random_batch(rng, 3, 256, 16, 4), card)
+    win, cov, uns = t["win_count"], t["cov"], t["unsup"]
+    e_ex = tbl.exit_half_units(t["exit_count"])
+    before = dict(C.launches)
+    with pytest.raises(ValueError):  # L does not divide V
+        C.solve_band_cuda(win, cov, uns, e_ex, 96)
+    with pytest.raises(TypeError):  # the kernels read the int16 band
+        C.solve_band_cuda(win.int(), cov, uns, e_ex, 64)
+    with pytest.raises(TypeError):
+        C.solve_band_cuda(win, cov, uns, e_ex.long(), 64)
+    with pytest.raises(ValueError):  # a CPU tensor: no fallback
+        C.solve_band_cuda(win.cpu(), cov.cpu(), uns.cpu(), e_ex.cpu(), 64)
+    with pytest.raises(ValueError):  # W past the kernels' 128
+        C.compose_cuda(torch.zeros((1, 256, 136), dtype=torch.int16,
+                                   device=card), cov[:1], uns[:1], e_ex[:1], 64)
+    assert C.launches == before

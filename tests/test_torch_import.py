@@ -52,6 +52,7 @@ _PORT_MODULES = (
     "ops.devbuild_torch", "ops.devemit", "ops.pk", "ops.pk_cuda",
     "tools.prof_pk", "tools.dp_ablate", "parallel.journal",
     "ops.align_tpu", "ops.align_cuda", "hybrid", "dazcon",
+    "ops.dp_blocked", "ops.dp_blocked_cuda", "parallel.colshard",
     # the copies of the JAX package's framework-free modules
     "alignment", "io", "oracle", "oracle.graph", "ops.linearize", "aligner",
     "simulate", "selfcheck", "ops.devbuild", "hgap", "dazzio",
@@ -117,10 +118,16 @@ def test_no_jax_package_import_in_port_sources():
     assert _grep(_JAX_PACKAGE_IMPORT) == []
 
 
-@pytest.mark.parametrize("backend", ["xla", "blocked", "pallas"])
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
 def test_tpu_backends_not_ported(backend):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DagconConfig(backend=backend)
+
+
+def test_blocked_backend_is_ported():
+    cfg = DagconConfig(backend="blocked", device="cpu")
+    assert (cfg.backend, cfg.device) == ("blocked", "cpu")
+    assert config_from_jax(JaxConfig(backend="blocked")).backend == "blocked"
 
 
 def test_devbuild_backend_is_ported():
@@ -171,7 +178,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
-    for name in ("dp_scan", "hist_scatter", "pk_variants", "align_scan"):
+    for name in ("dp_scan", "hist_scatter", "pk_variants", "align_scan",
+                 "dp_blocked"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build.load(name)
 
