@@ -58,10 +58,15 @@ Phases, in order; any failure exits non-zero before the last line:
    host-clock seconds, b/s, and a traced run's device busy time.
 7. Kernel X1 (`csrc/align_scan.cu`: the aligner's scan and traceback)
    against its plain versions, array-equal on the packed pointers and
-   the moves: random pairs (B = 77), length skew (Wa > 1024), identical
-   sequences of lengths 1-2000, then the first 1024 raw records of the
-   bench workload, where both are timed with CUDA events beside the
-   bound (bytes or int32 operations, whichever is larger).
+   the moves: the scan on both routes (`align_cuda.scan_plan`: "warp",
+   a warp per pair, and "cta"; "cta" only where the spans outgrow a
+   warp) on random pairs (B = 77), length skew (Wa > 1024: "cta"),
+   identical sequences of lengths 1-2000, the warp route's edge cases
+   (spans at every CPL class edge, length-1 and short pairs), then the
+   first 1024 raw records of the bench workload, where both kernels are
+   timed with CUDA events beside the bound (bytes or int32 operations,
+   whichever is larger) and the plain versions, and the scan's two
+   routes in turns (cta, warp, warp, cta).
 8. The `-a` device path at full width: the bench workload through
    `run_stream` (cuda backend, align_backend "device"), FASTA byte-equal
    to the single-thread native engine, the align and dp_scan launches
@@ -90,10 +95,12 @@ Phases, in order; any failure exits non-zero before the last line:
    b/s and a traced run; then `backend="blocked"` on the bench cell in
    turns with "cuda", byte-equal, with its flagged rows and launches.
 
-Then a JSON line of kernels (each with its launches on the main paths,
-max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms; hist and
-scatter also with their masked window and their per-call readings), and
-the last line:
+Each phase's own seconds are printed on a line of its own ("phase N:
+S s") as it ends. Then a JSON line of kernels (each with its launches
+on the main paths, max_abs_err, ms, plain_ms, bound_ms, bound_by and
+library_ms; hist and scatter also with their masked window and their
+per-call readings, align_scan with its route and the "cta" route's
+ms), and the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 """
 
@@ -182,6 +189,18 @@ def log(*a) -> None:
     print(*a, flush=True)
 
 
+_PHASE = {"name": None, "t0": 0.0}
+
+
+def phase(name) -> None:
+    """Print the seconds of the phase that ends here, on a line of its
+    own, and start the next one (None: the last one ended)."""
+    now = time.time()
+    if _PHASE["name"] is not None:
+        log(f"phase {_PHASE['name']}: {now - _PHASE['t0']:.1f} s")
+    _PHASE.update(name=name, t0=now)
+
+
 def card_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -255,6 +274,7 @@ def main() -> int:
     import numpy as np
     import torch
 
+    phase("1")
     # ---- phase 1: the card and the native engine ----
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -299,6 +319,7 @@ def main() -> int:
                                        "wgmma", "Performance", "entry")):
                 log(f"  ptxas {name}: {line.strip()}")
 
+    phase("2")
     # ---- phase 2: DP kernel vs plain version, bitwise ----
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -404,6 +425,7 @@ def main() -> int:
         f"SM clock")
     del args, got, want, batch
 
+    phase("3")
     # ---- phase 3: the native-loader path at full size ----
     def run_port():
         out = io.StringIO()
@@ -461,6 +483,7 @@ def main() -> int:
 
     cuda_path_launches = launches
 
+    phase("4")
     # ---- phase 4: hist and scatter kernels vs plain versions ----
     from pbdagcon_tpu_torch.ops import mxu, mxu_cuda
 
@@ -686,6 +709,7 @@ def main() -> int:
             log(f"  {name} call {one['shape']} [{one['plan']}]: kernel "
                 f"{one['ms']:.4f} ms (bound {one['bound_ms']:.4f})")
 
+    phase("4b")
     # ---- phase 4b: the microbench's kernels P1-P3 vs plain versions ----
     from pbdagcon_tpu_torch.ops import pk_cuda
     from pbdagcon_tpu_torch.tools import prof_pk
@@ -853,6 +877,7 @@ def main() -> int:
     log(f"prof_pk: every shape's lines agree; launches {pk_launches} [{card}]")
     del calls, masked_calls, prep
 
+    phase("5")
     # ---- phase 5: the devbuild path at full size ----
     dcfg = DagconConfig(
         min_weight=min_weight, min_length=100, threads=threads,
@@ -903,6 +928,7 @@ def main() -> int:
     trace_report("devbuild traced run", prof, traced_dt, card, top=10,
                  batches=tstats.batches)
 
+    phase("7")
     # ---- phase 7: kernel X1 (the device aligner) vs plain versions ----
     from pbdagcon_tpu_torch.aligner import align_pair
     from pbdagcon_tpu_torch.ops import align_cuda, align_tpu
@@ -919,20 +945,36 @@ def main() -> int:
                    for k in ("qb", "tb_pad", "m", "n", "bw")]
 
     def hold_x1(pairs, what, B=None) -> tuple:
+        """Both scan routes where the plan takes the batch ("cta" only
+        past a warp's span), each array-equal to the plain version, and
+        the traceback of the plan's route."""
         p, args = x1_args(pairs, B)
         M, Wa, dmin, L = p["M"], p["Wa"], p["dmin"], p["L"]
-        got = align_cuda.align_scan_cuda(*args, M, Wa, dmin)
+        auto = align_cuda.scan_plan(args[2], args[3], args[4], M, Wa, dmin)
+        routes = ("warp", "cta") if auto["route"] == "warp" else ("cta",)
         want = align_tpu.align_scan_plain(*args, M, Wa, dmin)
+        oks = {}
+        for r in routes:
+            g = align_cuda.align_scan_cuda(*args, M, Wa, dmin, align_cuda.
+                                           scan_plan(args[2], args[3], args[4],
+                                                     M, Wa, dmin, route=r))
+            torch.cuda.synchronize()
+            worst_a["align_scan"] = max(worst_a["align_scan"], int_err(g, want))
+            oks[r] = torch.equal(g, want)
+            if r == auto["route"]:
+                got = g
         mv = align_cuda.traceback_cuda(got, args[2], args[3], M, Wa, dmin, L)
         mv_want = align_tpu.traceback_plain(want, args[2], args[3], M, Wa,
                                             dmin, L)
         torch.cuda.synchronize()
-        worst_a["align_scan"] = max(worst_a["align_scan"], int_err(got, want))
         worst_a["align_traceback"] = max(worst_a["align_traceback"],
                                          int_err(mv, mv_want))
-        ok = torch.equal(got, want) and torch.equal(mv, mv_want)
+        ok = all(oks.values()) and torch.equal(mv, mv_want)
         log(f"X1 {what}: B={args[0].shape[0]} M={M} Wa={Wa} dmin={dmin} "
-            f"L={L}: {'array-equal' if ok else 'MISMATCH'}")
+            f"L={L}, plan {auto['route']}; scan "
+            + ", ".join(f"{r} {'array-equal' if v else 'MISMATCH'}"
+                        for r, v in oks.items())
+            + f", moves {'equal' if torch.equal(mv, mv_want) else 'MISMATCH'}")
         if not ok:
             raise SystemExit(f"chip_smoke: X1 != plain version ({what})")
         return p, args, got, mv
@@ -957,6 +999,9 @@ def main() -> int:
         ss = random_seq(arng, ln)
         same.append((ss, ss))
     hold_x1(same, "identical sequences, lengths 1-2000", B=13)
+    # The warp route's edge cases (tests/test_torch_align_plan.py).
+    hold_x1(align_tpu.warp_edge_pairs(), "spans at every CPL class edge")
+    hold_x1(align_tpu.short_pairs(), "length-1 and short pairs")
     for what, prs in (("random pairs", pairs), ("length skew", skew),
                       ("identical", same)):
         if align_tpu.align_batch(prs, dev) != [align_pair(q, t) for q, t in prs]:
@@ -967,7 +1012,16 @@ def main() -> int:
     bench_pairs = [(f[5], f[6]) for f in (l.split() for l in lines[:1024])]
     p, args, got, mv = hold_x1(bench_pairs, "bench batch (first 1024 records)")
     M, Wa, dmin, L = p["M"], p["Wa"], p["dmin"], p["L"]
-    scan_k = lambda: align_cuda.align_scan_cuda(*args, M, Wa, dmin)
+    plans = {r: align_cuda.scan_plan(p["m"], p["n"], p["bw"], M, Wa, dmin,
+                                     route=r) for r in ("warp", "cta")}
+    if align_cuda.scan_plan(p["m"], p["n"], p["bw"], M, Wa, dmin)[
+            "route"] != "warp":
+        raise SystemExit("chip_smoke: the bench batch did not take the warp "
+                         "route")
+    scan_k = lambda: align_cuda.align_scan_cuda(*args, M, Wa, dmin,
+                                                plans["warp"])
+    scan_c = lambda: align_cuda.align_scan_cuda(*args, M, Wa, dmin,
+                                                plans["cta"])
     scan_p = lambda: align_tpu.align_scan_plain(*args, M, Wa, dmin)
     tb_k = lambda: align_cuda.traceback_cuda(got, args[2], args[3], M, Wa, dmin, L)
     tb_p = lambda: align_tpu.traceback_plain(got, args[2], args[3], M, Wa, dmin, L)
@@ -981,6 +1035,15 @@ def main() -> int:
         pb = time_ms(p_fn, 1)
         x1[name] = {"ms": (ka + kb) / 2, "plain_ms": (pa + pb) / 2,
                     "turns": (pa, ka, kb, pb)}
+    # The scan's routes in turns (cta, warp, warp, cta).
+    ca = time_ms(scan_c, 10)
+    wa = time_ms(scan_k, 10)
+    wb = time_ms(scan_k, 10)
+    cb = time_ms(scan_c, 10)
+    x1["align_scan"].update(cta_ms=(ca + cb) / 2, route_turns=(ca, wa, wb, cb))
+    log(f"align_scan routes in turns (cta, warp, warp, cta): {ca} / {wa} / "
+        f"{wb} / {cb} ms; warp plan {plans['warp']['warps']} pairs a CTA, "
+        f"CPL classes {plans['warp']['cpl_counts']} [{card}]")
     # Bounds. Scan: the padded inputs read once and the pointers written
     # once, against the int32 operations the pairs' band cells need (6
     # per cell: diag and up adds, their max, the left chain's max, the
@@ -1008,7 +1071,9 @@ def main() -> int:
                         bound_by="bytes" if t_bytes >= t_ops else "operations",
                         bytes=nb_, int32_ops=ops)
         log(f"{name} at B={Bb} M={M} Wa={Wa} (rows {M}, lanes {Wa}; band cells "
-            f"{cells}, path steps {path_len}): kernel {x1[name]['turns'][1]} / "
+            f"{cells}, path steps {path_len}): kernel "
+            f"{'(warp route) ' if name == 'align_scan' else ''}"
+            f"{x1[name]['turns'][1]} / "
             f"{x1[name]['turns'][2]} ms, plain PyTorch {x1[name]['turns'][0]} / "
             f"{x1[name]['turns'][3]} ms, bound {x1[name]['bound_ms']} ms "
             f"(bytes {nb_} -> {t_bytes} ms, int32 ops {ops} -> {t_ops} ms: "
@@ -1030,10 +1095,11 @@ def main() -> int:
     if gapped != [align_pair(q, t) for q, t in bench_pairs[:64]] + gapped[64:]:
         raise SystemExit("chip_smoke: align_batch != align_pair (bench batch)")
     for line in _build.build_logs.get("align_scan", "").splitlines():
-        if any(w in line for w in ("registers", "spill", "error")):
+        if any(w in line for w in ("registers", "spill", "error", "entry")):
             log(f"  ptxas align_scan: {line.strip()}")
     del args, got, mv
 
+    phase("8")
     # ---- phase 8: the -a device path at full width ----
     acfg = dataclasses.replace(cfg, align_backend="device")
 
@@ -1092,6 +1158,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: traced -a device FASTA != single-core C++")
     trace_report("-a device traced run", prof, traced_dt, card, top=6)
 
+    phase("9")
     # ---- phase 9: the frontends (hgap -> -a device path; dazcon) ----
     from pbdagcon_tpu_torch.dazcon import run_dazcon
     from pbdagcon_tpu_torch.hgap import run_hgap
@@ -1171,6 +1238,7 @@ def main() -> int:
         f"; its first 16 targets byte-equal to device='cpu' (CPU wall "
         f"{dz_cpu_dt:.4f} s) [{card}]")
 
+    phase("10")
     # ---- phase 10: hybrid on the bench workload ----
     hcfg = dataclasses.replace(cfg, backend="hybrid",
                                batch_targets=DEVBUILD_BATCH)
@@ -1265,6 +1333,7 @@ def main() -> int:
         f"(host/device chunks {cold['host_chunks']}/{cold['dev_chunks']}, "
         f"{warm['host_chunks']}/{warm['dev_chunks']}) [{card}]")
 
+    phase("11")
     # ---- phase 11: kernel X2 (the blocked solve), colshard, "blocked" ----
     from pbdagcon_tpu_torch.ops import dp_blocked as dpb
     from pbdagcon_tpu_torch.ops import dp_blocked_cuda as x2c
@@ -1514,6 +1583,7 @@ def main() -> int:
         f"walls {[round(r[0], 4) for r in bruns['blocked']]} / "
         f"{[round(r[0], 4) for r in bruns['cuda']]} s); FASTA byte-equal [{card}]")
 
+    phase(None)
     # ---- results ----
     log(card)
     hist_ms, hist_plain, hist_lib, hist_bound = timed["hist"]
@@ -1597,6 +1667,8 @@ def main() -> int:
         "bound_by": x1[name]["bound_by"],
         # No one PyTorch call computes a banded alignment scan or walk.
         "library_ms": None,
+        **({"scan_route": "warp", "cta_ms": x1[name]["cta_ms"]}
+           if name == "align_scan" else {}),
     } for name, line in (("align_scan", 88), ("align_traceback", 47))] + [{
         "name": name,
         "route": "cuda",

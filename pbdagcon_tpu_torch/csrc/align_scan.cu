@@ -8,11 +8,44 @@
 // align_scan_plain` and `traceback_plain`, array-equal: all of it is
 // int32 arithmetic, so there is nothing to round.
 //
-// The scan, one CTA per pair. Lane k of row i holds column
-// j = i + dmin + k, so the diagonal predecessor is the same lane of the
-// previous row and the up predecessor lane k + 1. The previous row and
-// the current one live in shared memory (two buffers of Wa + 1 int32,
-// the last entry a NEG sentinel for the up read of lane Wa - 1). Each
+// The scan has two routes, chosen per batch by the launch plan
+// (`ops/align_cuda.py::scan_plan`) and checked by the C entry.
+//
+// Route "warp" (`align_scan_warp_kernel`), the rule: one warp per pair,
+// up to 8 pairs (warps) per CTA, no block barrier. Lane k of row i holds
+// column j = i + dmin + k. A pair's band over rows 1..m lies in a lane
+// span [ks, ks + 32 * CPL) that `pair_window` bounds from rows 1 and m
+// (c(i) - i is monotone in i), with a lane of margin each side; each
+// thread owns CPL consecutive lanes (CPL a multiple of 4: whole pointer
+// bytes), CPL in {4, 8, ..., 32} chosen per warp by a switch over
+// template instances. Per row, in registers: the diagonal term is the
+// thread's own previous cell, the up term the next one (one
+// __shfl_down_sync for the last), the left chain the thread's running
+// max of tmp + 3k and a 5-step __shfl_up_sync scan of the thread
+// totals, seeded with the lanes left of the span (NEG, or the j == 0
+// lane's GAP * i). The band (as a bit mask of the thread's cells) comes
+// from the centre c = i * n / m, which advances by n / m and a
+// remainder a row (no division).
+// The warp computes rows 1..min(m + 1, M): row m + 1 still reads row m.
+// Row 1 reads row 0, which is GAP * j on every 0 <= j <= n and not
+// masked to the band, so a first pass computes row 1 over all Wa lanes
+// in chunks of 128. Every other pointer has a closed form: 2 ("left",
+// byte 0xAA), but 1 on the j == 0 lane (`ops/align_tpu.py::
+// scan_closed_form`, which the CPU model `align_scan_window_model`
+// holds against the plain version). Each row's bytes go straight to
+// device memory, the span's from the threads that own them and the
+// closed form's from all; the rows past min(m + 1, M) as the closed form
+// in 16-byte stores. Every byte of [B, M, Wa / 4] is written once. The
+// pair's query bytes and the target bytes its rows read are staged
+// once in the warp's slice of shared memory; the target bytes slide
+// through registers a lane a row. The plan orders the pairs so that
+// each CTA of 8 holds heavy and light ones (rows x CPL), warps w and
+// w + 4, which share a scheduler, a heavy and a light one.
+//
+// Route "cta" (`align_scan_kernel`, for batches whose spans outgrow a
+// warp): one CTA per pair over all Wa lanes. The previous row and the
+// current one live in shared memory (two buffers of Wa + 1 int32, the
+// last entry a NEG sentinel for the up read of lane Wa - 1). Each
 // thread owns a run of whole pointer bytes (4 lanes each; several when
 // Wa / 4 is past the CTA's 256 threads). A row is:
 //   1. per lane: diag = prev[k] + sub, up = prev[k + 1] + GAP,
@@ -35,14 +68,19 @@
 //
 // What bounds it on this card: the scan's M sequential rows. Per pair it
 // reads M + (M + Wa) bytes and writes M * Wa / 4, a few hundred KB, and
-// does ~20 integer operations per cell; the whole batch's bytes over the
-// memory rate are tens of microseconds, its operations over the int32
-// rate a few more, while the rows run one after another inside a CTA,
-// each behind two barriers. The design keeps the row recurrence in
-// shared memory and the batch across CTAs (one pair each, several CTAs
-// per SM); making the rows cheaper (a warp per pair, registers for the
-// row, fewer barriers) is later work. The traceback is a chain of
-// dependent loads per pair (latency, not bandwidth).
+// does ~20 integer operations per band cell; the whole batch's bytes
+// over the memory rate are tens of microseconds, its operations over the
+// int32 rate a few more, while each pair's rows run one after another.
+// The "cta" route pays two block barriers and shared-memory round trips
+// a row over all Wa lanes; the "warp" route computes only the pair's
+// span (about 30% of the lanes on the bench batch), in registers. Its
+// time is the longest, widest pair's rows one after another: at CPL 24
+// a row takes ~1,900 cycles (the first pass ~750, the warp scan ~310,
+// the second pass ~530, the stores ~280, by the -D X1_PROF=1 clocks of
+// `tools/align_ablate.py`), with its scheduler to itself for most of
+// the run: one warp's integer instructions (16 lanes a cycle a
+// scheduler) bound it. The traceback is a chain of dependent loads per
+// pair (latency, not bandwidth).
 
 #include <climits>
 #include <cstdint>
@@ -190,8 +228,399 @@ __global__ void align_traceback_kernel(const uint8_t* __restrict__ packed,
   for (; s < L; ++s) mv[s] = 3;
 }
 
-// Dynamic shared memory of the scan's CTA: two rows of Wa + 1 int32 and
-// the warp totals (`ops/align_cuda.py::scan_smem` computes the same).
+// ---- route "warp" ----
+
+constexpr int WARP_MAX_CPL = 32;
+// Ablation builds of the warp route (`tools/align_ablate.py`; their
+// pointers are wrong, only their times count): bit 1 drops the stores of
+// rows 2..min(m + 1, M), bit 2 the closed-form rows past them, bit 4 the
+// warp scan of the thread totals.
+#ifndef X1_ABLATE
+#define X1_ABLATE 0
+#endif
+
+// Pair clocks for `tools/align_ablate.py` (-D X1_PROF=1; timing only):
+// lane 0 of each warp writes its pair's start and end (%globaltimer,
+// ns), rows, CPL, SM, hardware warp slot and the clock64() cycles of
+// its rows by phase (the first pass, the warp scan, the second pass,
+// the stores) to g_x1_prof, read by `dagcon_x1_prof_read`.
+#ifndef X1_PROF
+#define X1_PROF 0
+#endif
+#if X1_PROF
+constexpr int kProfPairs = 4096;
+__device__ unsigned long long g_x1_prof[kProfPairs][10];
+__device__ __forceinline__ unsigned long long x1_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#endif
+
+constexpr int MAX_WARPS_PER_CTA = 8;
+
+__host__ __device__ constexpr int r16(int x) { return (x + 15) / 16 * 16; }
+
+// Shared memory of one warp: the query bytes (M) and the target bytes
+// its rows read (at most M - 1 + 32 * WARP_MAX_CPL)
+// (`ops/align_cuda.py::warp_slot` computes the same).
+__host__ __device__ constexpr int warp_slot(int M) {
+  return r16(M) + r16(M + 32 * WARP_MAX_CPL);
+}
+
+// The pair's lane span [ks, ks + 32 * cpl): `ops/align_tpu.py::
+// scan_windows`, the same arithmetic (m, n >= 1).
+__device__ __forceinline__ void pair_window(int m, int n, int bw, int Wa,
+                                            int dmin, int& ks, int& cpl) {
+  const long long mm = m, nn = n, b = bw;
+  const long long g1 = nn / mm - 1 - b;
+  const long long gm = nn - mm - b;
+  const long long lo = max(1 - mm, min(g1, gm)) - dmin;
+  const long long hi = min(nn - 1, max(g1, gm) + 2 * b) - dmin;
+  const long long s = max(0LL, lo - 1) / 4 * 4;
+  const long long need = max(min((long long)Wa, hi + 2) - s, 1LL);
+  const long long c = (need + 31) / 32;
+  ks = (int)min(s, (long long)Wa);
+  cpl = (int)min((c + 3) / 4 * 4, 1LL << 20);
+}
+
+// H[0][k]: GAP * j on 0 <= j = dmin + k <= n, NEG elsewhere and past
+// the last lane.
+__device__ __forceinline__ int row0(int k, int n, int Wa, int dmin) {
+  const int j = dmin + k;
+  return (k < Wa && j >= 0 && j <= n) ? GAP * j : NEG;
+}
+
+// The closed-form byte c of row i: 0xAA, with pointer 1 on the j == 0
+// lane k0 = -i - dmin.
+__device__ __forceinline__ unsigned closed_byte(int c, int i, int dmin) {
+  const int k0 = -i - dmin;
+  return (k0 >= 0 && (k0 >> 2) == c) ? (0xAAu ^ (3u << (2 * (k0 & 3))))
+                                     : 0xAAu;
+}
+
+// Row 1 over all Wa lanes, 128 a step, straight to device memory.
+__device__ __forceinline__ void scan_row1(const uint8_t* q,
+                                          const uint8_t* t, uint8_t* out,
+                                          int m, int n, long long bw,
+                                          int Wa, int dmin, int lane) {
+  const long long c1 = (long long)n / m;
+  const long long lo = c1 - bw > 1 ? c1 - bw : 1;
+  const long long hi = c1 + bw < n ? c1 + bw : (long long)n;
+  const int qc = q[0];
+  int carry = INT_MIN;
+  for (int kc = 0; kc < Wa; kc += 128) {
+    const int k4 = kc + 4 * lane;
+    int cm[4], dg[4], up[4];
+    int run = INT_MIN;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int k = k4 + r;
+      const int j = 1 + dmin + k;
+      const int sub = t[1 + k] == qc ? MATCH : MISMATCH;
+      dg[r] = row0(k, n, Wa, dmin) + sub;
+      up[r] = row0(k + 1, n, Wa, dmin) + GAP;
+      int tmp = (j >= lo && j <= hi) ? max(dg[r], up[r]) : NEG;
+      if (j == 0) tmp = GAP;
+      run = max(run, tmp + 3 * k);
+      cm[r] = run;
+    }
+    int v = run;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(FULL, v, off);
+      if (lane >= off) v = max(v, u);
+    }
+    int excl = __shfl_up_sync(FULL, v, 1);
+    if (lane == 0) excl = carry;
+    excl = max(excl, carry);
+    carry = max(carry, __shfl_sync(FULL, v, 31));
+    unsigned byte = 0;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int h = max(excl, cm[r]) - 3 * (k4 + r);
+      const unsigned p = h == dg[r] ? 0u : h == up[r] ? 1u : 2u;
+      byte |= p << (2 * r);
+    }
+    out[kc / 4 + lane] = (uint8_t)byte;
+  }
+}
+
+// One row i of the warp route over the span, in registers: Hp holds row
+// i - 1 on entry and row i on exit, tq the target bytes t[i + k - 1] of
+// the thread's lanes on entry and of row i + 1 on exit. ZROW: the j == 0
+// lane may fall in the span (rows i <= -dmin - ks); past them it lies
+// left of the span and enters through the seed only. Row i's pointer
+// bytes in the span are stored to grow (none where !store) and the
+// closed form to the rest of the row.
+template <int CPL, bool ZROW>
+__device__ __forceinline__ void warp_row(
+    int i, int c, int (&Hp)[CPL], int (&tq)[CPL], const uint8_t* qs,
+    const uint8_t* ts, uint8_t* __restrict__ grow, int m, int n, int bw,
+    int R, int Wa, int dmin, int ks, int kb, int up_edge, int seed_neg,
+    int sb, int se, bool store, int lane,
+    unsigned long long (&ph)[4]) {
+#if X1_PROF
+  unsigned long long t_ph = clock64();
+#define X1_PHASE(k)                          \
+  do {                                       \
+    const unsigned long long t_ = clock64(); \
+    ph[k] += t_ - t_ph;                      \
+    t_ph = t_;                               \
+  } while (0)
+#else
+#define X1_PHASE(k) \
+  do {              \
+  } while (0)
+#endif
+  const int Wa4 = Wa >> 2;
+  const int qc = qs[i - 1];
+  const int tnext = i < R ? ts[i + lane * CPL + CPL - 1] : 0;
+  // The band [max(1, c - bw), min(n, c + bw)] of row i (c = i * n / m,
+  // kept by the caller) in this thread's lane offsets [vlo, vhi].
+  int vlo = 1, vhi = 0;
+  if (i <= m) {
+    vlo = max(1, c - bw) - i - dmin - kb;
+    vhi = min(min(n, c + bw) - i - dmin, Wa - 1) - kb;
+  }
+  const int k0 = -i - dmin;  // the j == 0 lane
+  const int zc = k0 < Wa ? k0 - kb : -1;
+  int upn = __shfl_down_sync(FULL, Hp[0], 1);
+  if (lane == 31) upn = up_edge;
+
+  // The band's and the j == 0 lane's cells of this thread as bits.
+  const int blo = max(vlo, 0), bhi = min(vhi, CPL - 1);
+  const unsigned vm =
+      blo > bhi ? 0u : ((2u << bhi) - 1u) & ~((1u << blo) - 1u);
+  const unsigned zm = (ZROW && zc >= 0 && zc < CPL) ? 1u << zc : 0u;
+  int cm[CPL], dg[CPL], up[CPL];
+  int run = INT_MIN;
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) {
+    dg[c] = Hp[c] + (tq[c] == qc ? MATCH : MISMATCH);
+    up[c] = (c + 1 < CPL ? Hp[c + 1] : upn) + GAP;
+    int tmp = (vm >> c) & 1u ? max(dg[c], up[c]) : NEG;
+    if (ZROW && ((zm >> c) & 1u)) tmp = GAP * i;
+    run = max(run, tmp + 3 * (kb + c));
+    cm[c] = run;
+  }
+  int v = run;
+  X1_PHASE(0);
+  if (!(X1_ABLATE & 4)) {
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(FULL, v, off);
+      if (lane >= off) v = max(v, u);
+    }
+  }
+  int excl = __shfl_up_sync(FULL, v, 1);
+  if (lane == 0) {
+    excl = (k0 >= 0 && k0 < ks) ? max(seed_neg, GAP * i + 3 * k0) : seed_neg;
+  }
+
+  X1_PHASE(1);
+  unsigned bytes[CPL / 4];
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) {
+    const int h = max(excl, cm[c]) - 3 * (kb + c);
+    const unsigned p = h == dg[c] ? 0u : h == up[c] ? 1u : 2u;
+    if ((c & 3) == 0) bytes[c >> 2] = 0;
+    bytes[c >> 2] |= p << (2 * (c & 3));
+    Hp[c] = ((vm | zm) >> c) & 1u ? h : NEG;
+  }
+#pragma unroll
+  for (int c = 0; c + 1 < CPL; ++c) tq[c] = tq[c + 1];
+  tq[CPL - 1] = tnext;
+  X1_PHASE(2);
+
+  if (X1_ABLATE & 1) {
+    // Keep the pointers live without storing them.
+    unsigned x = 0;
+#pragma unroll
+    for (int c4 = 0; c4 < CPL / 4; ++c4) x ^= bytes[c4];
+    if (x == (unsigned)Wa * 977u) grow[0] = 0;
+  } else if (store) {
+#pragma unroll
+    for (int c4 = 0; c4 < CPL / 4; ++c4) {
+      const int bi = (kb >> 2) + c4;
+      if (bi < Wa4) grow[bi] = (uint8_t)bytes[c4];
+    }
+    // The closed form outside the span's bytes [sb, se): the words
+    // wholly outside it, then the bytes of the two words it cuts.
+    const int wl = sb >> 2, wr = (se + 3) >> 2, nw = Wa4 >> 2;
+    const int k0b = k0 >> 2;  // the j == 0 lane's byte (k0 >= 0)
+    unsigned* gw = reinterpret_cast<unsigned*>(grow);
+    for (int x = lane; x < wl + (nw - wr); x += 32) {
+      const int w = x < wl ? x : wr + (x - wl);
+      unsigned word = 0xAAAAAAAAu;
+      if (k0 >= 0 && (k0b >> 2) == w) {
+        word ^= (3u << (2 * (k0 & 3))) << (8 * (k0b & 3));
+      }
+      gw[w] = word;
+    }
+    if (lane < 8) {
+      const int bi = lane < 4 ? 4 * wl + lane : se + (lane - 4);
+      if ((lane < 4 ? bi < sb : bi < 4 * wr) && bi < Wa4) {
+        grow[bi] = (uint8_t)closed_byte(bi, i, dmin);
+      }
+    }
+  }
+  X1_PHASE(3);
+#undef X1_PHASE
+}
+
+template <int CPL>
+__device__ void scan_pair_warp(const uint8_t* __restrict__ q,
+                               const uint8_t* __restrict__ t,
+                               uint8_t* __restrict__ out, int m, int n,
+                               long long bw, int M, int T, int Wa,
+                               int dmin, int ks, uint8_t* qs, uint8_t* ts,
+                               int lane, int prof_b) {
+  const int Wa4 = Wa >> 2;
+  const int R = min(m + 1, M);
+  const int span = 32 * CPL;
+  // Stage the query bytes of rows 1..R and the target bytes ts[x] =
+  // t[1 + ks + x] that rows 1..R read over the span (0 past T).
+  for (int x = lane; x < R; x += 32) qs[x] = q[x];
+  const int nt = R - 1 + span;
+  for (int x = lane; x < nt; x += 32) {
+    const int y = 1 + ks + x;
+    ts[x] = y < T ? t[y] : 0;
+  }
+  __syncwarp();
+
+  scan_row1(qs, t, out, m, n, bw, Wa, dmin, lane);
+
+  const int kb = ks + lane * CPL;
+  const int kend = ks + span;
+  const int sb = ks >> 2;                       // the span's bytes
+  const int se = min(Wa, kend) >> 2;            // [sb, se)
+  int Hp[CPL];
+  int tq[CPL];
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) {
+    Hp[c] = row0(kb + c, n, Wa, dmin);
+    tq[c] = ts[lane * CPL + c];
+  }
+  const int seed_neg = ks > 0 ? NEG + 3 * (ks - 1) : INT_MIN;
+  unsigned long long ph[4] = {0, 0, 0, 0};
+  // The band centre c = i * n / m by steps: q + (r / m) a row.
+  const int cq = n / m, cr = n % m;
+  int c = 0, rem = 0;
+  // Rows 1..iz may hold the j == 0 lane in the span; row 1's pointers
+  // are the first pass's, so its row here only builds H.
+  const int iz = min(R, max(0, -dmin - ks));
+  const int bwi = (int)bw;
+  for (int i = 1; i <= iz; ++i) {
+    c += cq;
+    rem += cr;
+    if (rem >= m) {
+      rem -= m;
+      c += 1;
+    }
+    warp_row<CPL, true>(i, c, Hp, tq, qs, ts, out + (size_t)(i - 1) * Wa4,
+                        m, n, bwi, R, Wa, dmin, ks, kb,
+                        i == 1 ? row0(kend, n, Wa, dmin) : NEG, seed_neg, sb,
+                        se, i >= 2, lane, ph);
+  }
+  for (int i = iz + 1; i <= R; ++i) {
+    c += cq;
+    rem += cr;
+    if (rem >= m) {
+      rem -= m;
+      c += 1;
+    }
+    warp_row<CPL, false>(i, c, Hp, tq, qs, ts, out + (size_t)(i - 1) * Wa4,
+                         m, n, bwi, R, Wa, dmin, ks, kb,
+                         i == 1 ? row0(kend, n, Wa, dmin) : NEG, seed_neg,
+                         sb, se, i >= 2, lane, ph);
+  }
+
+  // Rows R + 1..M: the closed form, 16 bytes a store.
+  uint4* gout = reinterpret_cast<uint4*>(out);
+  const int nvec = Wa4 >> 4;
+  const int nrest = (X1_ABLATE & 2) ? 0 : (M - R) * nvec;
+  for (int x = lane; x < nrest; x += 32) {
+    const int i = R + 1 + x / nvec;
+    const int v16 = x % nvec;
+    unsigned w[4] = {0xAAAAAAAAu, 0xAAAAAAAAu, 0xAAAAAAAAu, 0xAAAAAAAAu};
+    const int k0 = -i - dmin;
+    if (k0 >= 0 && (k0 >> 6) == v16) {
+      const int byte = (k0 >> 2) & 15;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (e == byte >> 2) w[e] ^= (3u << (2 * (k0 & 3))) << (8 * (byte & 3));
+      }
+    }
+    gout[(size_t)(i - 1) * nvec + v16] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+#if X1_PROF
+  if (lane == 0 && prof_b < kProfPairs) {
+    for (int k = 0; k < 4; ++k) g_x1_prof[prof_b][6 + k] = ph[k];
+  }
+#endif
+}
+
+__global__ void __launch_bounds__(MAX_WARPS_PER_CTA * 32)
+align_scan_warp_kernel(const uint8_t* __restrict__ qb,
+                       const uint8_t* __restrict__ tb,
+                       const int* __restrict__ m_, const int* __restrict__ n_,
+                       const int* __restrict__ bw_,
+                       uint8_t* __restrict__ packed,
+                       const int* __restrict__ order, int M, int T, int Wa,
+                       int dmin, int cpl_max) {
+  extern __shared__ __align__(16) uint8_t wsm[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  // The plan's pair of this warp (-1: none); it mixes heavy and light
+  // pairs in each CTA, so the warps that share a scheduler share work.
+  const int b = order[blockIdx.x * (blockDim.x >> 5) + warp];
+  if (b < 0) return;
+  uint8_t* qs = wsm + (size_t)warp * warp_slot(M);
+  uint8_t* ts = qs + r16(M);
+  const int m = m_[b];
+  const int n = n_[b];
+  const int bw = bw_[b];
+  int ks, cpl;
+  pair_window(m, n, bw, Wa, dmin, ks, cpl);
+  // The plan promised every span within cpl_max lanes a thread.
+  if (cpl > cpl_max) __trap();
+  const uint8_t* q = qb + (size_t)b * M;
+  const uint8_t* t = tb + (size_t)b * T;
+  uint8_t* out = packed + (size_t)b * M * (Wa >> 2);
+#if X1_PROF
+  const unsigned long long t_start = x1_now();
+#endif
+#define X1_CPL(C)                                                         \
+  case C:                                                                 \
+    scan_pair_warp<C>(q, t, out, m, n, bw, M, T, Wa, dmin, ks, qs, ts,    \
+                      lane, b);                                           \
+    break;
+  switch (cpl) {
+    X1_CPL(4) X1_CPL(8) X1_CPL(12) X1_CPL(16)
+    X1_CPL(20) X1_CPL(24) X1_CPL(28) X1_CPL(32)
+    default:
+      __trap();
+  }
+#undef X1_CPL
+#if X1_PROF
+  if (lane == 0 && b < kProfPairs) {
+    unsigned smid, wid;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
+    asm volatile("mov.u32 %0, %%warpid;" : "=r"(wid));
+    g_x1_prof[b][0] = t_start;
+    g_x1_prof[b][1] = x1_now();
+    g_x1_prof[b][2] = min(m + 1, M);
+    g_x1_prof[b][3] = cpl;
+    g_x1_prof[b][4] = smid;
+    g_x1_prof[b][5] = wid;
+  }
+#endif
+}
+
+// Dynamic shared memory of the "cta" route's CTA: two rows of Wa + 1
+// int32 and the warp totals (`ops/align_cuda.py::scan_smem` computes the
+// same).
 int scan_smem(int Wa) {
   return (2 * (Wa + 1) + MAX_WARPS) * (int)sizeof(int);
 }
@@ -200,17 +629,47 @@ int scan_smem(int Wa) {
 
 extern "C" {
 
+// route 0 "cta": smem == scan_smem(Wa). route 1 "warp": warps pairs a
+// CTA (1..8), every span within cpl_max lanes a thread (a multiple of 4
+// up to 32), smem == warps * warp_slot(M), `order` the pair of each of
+// the ceil(B / warps) * warps warp slots (-1 for none). Refuses any
+// other plan.
 int dagcon_align_scan(const void* qb, const void* tb, const void* m,
-                      const void* n, const void* bw, void* packed, int B,
-                      int M, int T, int Wa, int dmin, void* stream) {
-  if (B <= 0 || M <= 0) return 0;
-  if (Wa <= 0 || Wa % 128 != 0 || T < M + Wa) {
+                      const void* n, const void* bw, void* packed,
+                      const void* order, int B, int M, int T, int Wa,
+                      int dmin, int route, int warps, int cpl_max, int smem,
+                      void* stream) {
+  if (Wa <= 0 || Wa % 128 != 0 || T < M + Wa || B < 0 || M < 0) {
     return (int)cudaErrorInvalidValue;
+  }
+  if (route == 1) {
+    if (warps < 1 || warps > MAX_WARPS_PER_CTA || cpl_max < 4 ||
+        cpl_max > WARP_MAX_CPL || cpl_max % 4 != 0 ||
+        smem != warps * warp_slot(M) || smem > 232448 ||
+        order == nullptr) {
+      return (int)cudaErrorInvalidValue;
+    }
+  } else if (route != 0 || smem != scan_smem(Wa) || smem > 232448) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (B == 0 || M == 0) return 0;
+  if (route == 1) {
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          align_scan_warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    align_scan_warp_kernel<<<(B + warps - 1) / warps, 32 * warps, smem,
+                             (cudaStream_t)stream>>>(
+        (const uint8_t*)qb, (const uint8_t*)tb, (const int*)m, (const int*)n,
+        (const int*)bw, (uint8_t*)packed, (const int*)order, M, T, Wa, dmin,
+        cpl_max);
+    return (int)cudaGetLastError();
   }
   const int Wa4 = Wa / 4;
   const int threads = Wa4 < MAX_THREADS ? Wa4 : MAX_THREADS;
   const int per = (Wa4 + threads - 1) / threads;
-  const int smem = scan_smem(Wa);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         align_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -234,6 +693,16 @@ int dagcon_align_traceback(const void* packed, const void* m, const void* n,
       B, M, Wa, dmin, L);
   return (int)cudaGetLastError();
 }
+
+#if X1_PROF
+// The last launch's pair clocks of pairs 0..n-1 into host [n][10]
+// (unsigned 64-bit), n <= 4096.
+int dagcon_x1_prof_read(void* host, int n) {
+  if (n < 0 || n > kProfPairs) return (int)cudaErrorInvalidValue;
+  return (int)cudaMemcpyFromSymbol(host, g_x1_prof,
+                                   sizeof(unsigned long long) * 10 * n);
+}
+#endif
 
 const char* dagcon_cuda_error_string(int rc) {
   return cudaGetErrorString((cudaError_t)rc);

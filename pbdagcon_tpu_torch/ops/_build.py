@@ -127,8 +127,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         ]
     if name == "align_scan":
         lib.dagcon_align_scan.restype = ci
-        # (qb, tb_pad, m, n, bw, packed, B, M, T, Wa, dmin, stream)
-        lib.dagcon_align_scan.argtypes = [vp] * 6 + [ci] * 5 + [vp]
+        # (qb, tb_pad, m, n, bw, packed, order, B, M, T, Wa, dmin, route,
+        # warps, cpl_max, smem, stream)
+        lib.dagcon_align_scan.argtypes = [vp] * 7 + [ci] * 9 + [vp]
         lib.dagcon_align_traceback.restype = ci
         # (packed, m, n, moves, B, M, Wa, dmin, L, stream)
         lib.dagcon_align_traceback.argtypes = [vp] * 4 + [ci] * 5 + [vp]

@@ -11,15 +11,22 @@ and raises if the build or the launch fails. Both launch on the current
 stream without synchronising; outputs are `torch.empty` (every byte is
 written).
 
+The scan has two routes, chosen per batch by `scan_plan`: "warp" (a
+warp per pair over the pair's own lane span, `align_scan_warp_kernel`)
+where every pair's span fits 32 x WARP_MAX_CPL lanes, else "cta" (a CTA
+per pair over all Wa lanes, `align_scan_kernel`). The C entry checks the
+plan and refuses one it does not take.
+
 `launches` counts each kernel's launches by name ("align_scan",
 "align_traceback").
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from pbdagcon_tpu_torch.ops import _build
+from pbdagcon_tpu_torch.ops import _build, align_tpu
 
 launches = {"align_scan": 0, "align_traceback": 0}
 
@@ -29,9 +36,108 @@ MAX_SMEM = 232_448
 
 
 def scan_smem(Wa: int) -> int:
-    """Dynamic shared memory of the scan's CTA (the kernel file's
-    `dagcon_align_scan_smem`)."""
+    """Dynamic shared memory of the "cta" route's CTA (the kernel file's
+    `scan_smem`)."""
     return (2 * (Wa + 1) + 8) * 4
+
+
+ROUTES = {"cta": 0, "warp": 1}
+# Pairs (warps) a CTA holds on the "warp" route: enough CTAs for the
+# card's 132 SMs, at most 8 warps each (the warps w and w + 4 of a CTA
+# share a scheduler, and the plan gives them a heavy and a light pair).
+SMS = 132
+MAX_WARPS_PER_CTA = 8
+# The warp route's lanes a thread.
+CPL_CLASSES = tuple(range(4, align_tpu.WARP_MAX_CPL + 1, 4))
+
+
+def _r16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def warp_slot(M: int) -> int:
+    """Shared memory of one warp on the "warp" route (the kernel file's
+    `warp_slot`): the query bytes and the target bytes its rows read
+    (M - 1 + 32 x WARP_MAX_CPL at most)."""
+    return _r16(M) + _r16(M + 32 * align_tpu.WARP_MAX_CPL)
+
+
+def _snake_order(work: np.ndarray, warps: int) -> np.ndarray:
+    """The pair of each warp slot (CTA g, warp w at g * warps + w; -1
+    for none): the pairs by work, heaviest first, dealt to the CTAs in a
+    snake, one pass of G pairs a warp slot. With 8 warps a CTA, warps w
+    and w + 4 share a scheduler: passes 0-3 take slots 0-3 and passes
+    7-4 slots 4-7, so the heaviest pairs share theirs with the
+    lightest."""
+    B = len(work)
+    G = max(1, -(-B // warps))
+    rank = np.argsort(-np.asarray(work), kind="stable")
+    r = np.arange(B)
+    p, g = r // G, r % G
+    g = np.where(p % 2 == 0, g, G - 1 - g)
+    slot = np.where(p < 4, p, 11 - p) if warps == 8 else p
+    order = np.full(G * warps, -1, dtype=np.int32)
+    order[g * warps + slot] = rank
+    return order
+
+
+def scan_plan(m, n, bw, M: int, Wa: int, dmin: int,
+              route: str | None = None, warps: int | None = None) -> dict:
+    """The scan's launch plan for a batch (m, n, bw: numpy arrays or
+    tensors of the real and padded pairs). "warp" where every pair has
+    1 <= m, n >= 1, a band at least `band_halfwidth(m, n)` wide (the
+    closed form outside the spans rests on a connected band) and a span
+    (`align_tpu.scan_windows`) within WARP_MAX_CPL lanes a thread, with
+    its warp's slot in one CTA's shared memory; else "cta". `route`
+    forces one route and raises ValueError where it does not fit;
+    `warps` forces the warps a CTA on "warp" (1..8).
+    Keys: route, smem (bytes a CTA), and on "warp": warps (pairs a
+    CTA), cpl_max, cpl_counts (pairs per CPL class) and order (int32,
+    the pair of each warp slot, -1 for none: the pairs by work, rows x
+    CPL, dealt to the CTAs in a snake, so each CTA holds heavy and light
+    ones)."""
+    m, n, bw = (np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x,
+                           dtype=np.int64) for x in (m, n, bw))
+    if route not in (None, *ROUTES):
+        raise ValueError(f"unknown scan route {route!r}")
+    why = None
+    if Wa <= 0 or Wa % 128:
+        raise ValueError(f"Wa must be a positive multiple of 128, got {Wa}")
+    if len(m) and (m.min() < 1 or n.min() < 1):
+        why = "a pair has m or n below 1"
+    elif len(m) and max(m.max(), n.max(), bw.max()) >= 1 << 28:
+        why = "a length or band past 2**28 (the kernel's int32 centre)"
+    elif len(m) and (bw < np.maximum(64, np.abs(m - n) + 32)).any():
+        # aligner.band_halfwidth, over the batch
+        why = "a pair's band is narrower than band_halfwidth(m, n)"
+    else:
+        _, cpl = (align_tpu.scan_windows(m, n, bw, Wa, dmin) if len(m)
+                  else (None, np.full(0, 4, np.int64)))
+        cpl_max = int(cpl.max()) if len(cpl) else 4
+        if cpl_max > align_tpu.WARP_MAX_CPL:
+            why = (f"a pair's span needs {cpl_max} lanes a thread, past "
+                   f"{align_tpu.WARP_MAX_CPL}")
+        elif warp_slot(M) > MAX_SMEM:
+            why = f"M = {M} outgrows one warp's shared memory"
+    if why is None and route in (None, "warp"):
+        fit = max(1, min(MAX_WARPS_PER_CTA, -(-len(m) // SMS),
+                         MAX_SMEM // warp_slot(M)))
+        if warps is None:
+            warps = fit
+        elif not 1 <= warps <= min(MAX_WARPS_PER_CTA,
+                                   MAX_SMEM // warp_slot(M)):
+            raise ValueError(f"{warps} warps a CTA do not fit")
+        classes, counts = np.unique(cpl, return_counts=True)
+        work = np.minimum(m + 1, M) * cpl
+        return {"route": "warp", "warps": warps, "cpl_max": cpl_max,
+                "smem": warps * warp_slot(M),
+                "cpl_counts": dict(zip(classes.tolist(), counts.tolist())),
+                "order": _snake_order(work, warps)}
+    if route == "warp":
+        raise ValueError(f"the warp route does not take this batch: {why}")
+    if scan_smem(Wa) > MAX_SMEM:
+        raise ValueError(f"Wa = {Wa} outgrows one CTA's shared memory")
+    return {"route": "cta", "smem": scan_smem(Wa)}
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -54,8 +160,11 @@ def align_scan_cuda(
     M: int,
     Wa: int,
     dmin: int,
+    plan: dict | None = None,
 ) -> torch.Tensor:
-    """Packed traceback pointers [B, M, Wa // 4] uint8 by the kernel."""
+    """Packed traceback pointers [B, M, Wa // 4] uint8 by the kernel,
+    on the route of `plan` (`scan_plan`; made here from m, n and bw,
+    which costs a copy to the host, when None)."""
     device = qb.device
     if device.type != "cuda":
         raise ValueError(f"align_scan_cuda needs CUDA tensors, got {device}")
@@ -70,8 +179,15 @@ def align_scan_cuda(
         raise ValueError(f"Wa must be a positive multiple of 128, got {Wa}")
     if T < M + Wa:
         raise ValueError(f"tb_pad rows must hold M + Wa = {M + Wa} bytes, got {T}")
-    if scan_smem(Wa) > MAX_SMEM:
-        raise ValueError(f"Wa = {Wa} outgrows one CTA's shared memory")
+    if plan is None:
+        plan = scan_plan(m, n, bw, M, Wa, dmin)
+    if plan.get("route") not in ROUTES:
+        raise ValueError(f"not a scan plan: {plan}")
+    order = None
+    if plan["route"] == "warp":
+        if len(plan["order"]) != -(-B // plan["warps"]) * plan["warps"]:
+            raise ValueError(f"the plan's order is not of B = {B} pairs")
+        order = torch.from_numpy(plan["order"]).to(device)
     lib = _build.load("align_scan")
     packed = torch.empty((B, M, Wa // 4), dtype=torch.uint8, device=device)
     if B == 0 or M == 0:
@@ -80,7 +196,10 @@ def align_scan_cuda(
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.dagcon_align_scan(
             qb.data_ptr(), tb_pad.data_ptr(), m.data_ptr(), n.data_ptr(),
-            bw.data_ptr(), packed.data_ptr(), B, M, T, Wa, dmin, stream,
+            bw.data_ptr(), packed.data_ptr(),
+            None if order is None else order.data_ptr(), B, M, T, Wa, dmin,
+            ROUTES[plan["route"]], plan.get("warps", 0),
+            plan.get("cpl_max", 0), plan["smem"], stream,
         )
     _build.check(lib, rc, "align_scan launch")
     launches["align_scan"] += 1

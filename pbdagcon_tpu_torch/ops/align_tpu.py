@@ -113,6 +113,185 @@ def align_scan_plain(
     return out
 
 
+# The warp route of kernel X1's scan (`csrc/align_scan.cu`,
+# `align_scan_warp_kernel`) gives each pair one warp of 32 threads, each
+# thread CPL consecutive lanes: CPL is a multiple of 4 (whole pointer
+# bytes a thread), at most WARP_MAX_CPL.
+WARP_MAX_CPL = 32
+
+
+def scan_windows(m, n, bw, Wa: int, dmin: int):
+    """Each pair's lane span on the warp route of X1's scan: (ks, cpl),
+    int64 arrays. The warp computes lanes [ks, ks + 32 * cpl) of rows
+    1..min(m + 1, M) (row 1 over all Wa lanes); every other pointer has
+    a closed form (`scan_closed_form`).
+
+    The span holds every band lane of rows 1..m, one lane to each side
+    and ks rounded down to 4. Lane k of row i is column
+    j = i + dmin + k, so the band of row i is lanes
+    [lo - i - dmin, hi - i - dmin] with lo - i = max(1 - i, g(i)) and
+    hi - i = min(n - i, g(i) + 2 bw), g(i) = i * n // m - i - bw =
+    (i * (n - m)) // m - bw, monotone in i: the bounds
+    max(1 - m, min(g(1), g(m))) and min(n - 1, max(g(1), g(m)) + 2 bw)
+    hold every row's band. Pointers outside a band can differ from
+    "left" only where the previous row's band is read (the diagonal or
+    the up term), which is one lane left of the band at most: hence the
+    margin. Row 1 reads row 0, which is not masked to the band, so the
+    kernel computes it whole. Takes numpy arrays or ints (m, n >= 1);
+    the kernel's `pair_window` is the same arithmetic."""
+    m64, n64, bw64 = (np.asarray(x, dtype=np.int64) for x in (m, n, bw))
+    g1 = n64 // m64 - 1 - bw64
+    gm = n64 - m64 - bw64
+    lo = np.maximum(1 - m64, np.minimum(g1, gm)) - dmin
+    hi = np.minimum(n64 - 1, np.maximum(g1, gm) + 2 * bw64) - dmin
+    ks = np.maximum(0, lo - 1) // 4 * 4
+    need = np.maximum(np.minimum(Wa, hi + 2) - ks, 1)
+    cpl = -(-(-(-need // 32)) // 4) * 4
+    return ks, cpl
+
+
+def scan_closed_form(B: int, M: int, Wa: int, dmin: int) -> torch.Tensor:
+    """The pointers X1's warp route writes outside the lanes it
+    computes: 2 ("left", byte 0xAA) everywhere but the j == 0 lane
+    k0 = -i - dmin of each row, whose pointer is 1 (its tmp is forced to
+    GAP * i and the up term from row i - 1's j == 0 cell ties). [B, M,
+    Wa // 4] uint8."""
+    out = torch.full((B, M, Wa // 4), 0xAA, dtype=torch.uint8)
+    rows = torch.arange(1, M + 1)
+    k0 = -rows - dmin
+    ok = (k0 >= 0) & (k0 < Wa)
+    r, k = rows[ok] - 1, k0[ok]
+    out[:, r, k // 4] ^= (3 << (2 * (k % 4))).to(torch.uint8)
+    return out
+
+
+def align_scan_window_model(
+    qb: torch.Tensor,  # [B, M] uint8
+    tb_pad: torch.Tensor,  # [B, T] uint8
+    m: torch.Tensor,  # [B] int32
+    n: torch.Tensor,  # [B] int32
+    bw: torch.Tensor,  # [B] int32
+    M: int,
+    Wa: int,
+    dmin: int,
+) -> torch.Tensor:
+    """X1's warp route as a CPU model, array-equal to `align_scan_plain`
+    where `scan_windows` holds the band (m, n >= 1, bw at least
+    `band_halfwidth`, the warp route's condition): the closed form
+    everywhere, row 1 over all Wa lanes, then rows 2..min(m + 1, M) over
+    each pair's span only, with NEG outside it and the running max
+    seeded with the lanes left of it (NEG, or the j == 0 lane's
+    GAP * i)."""
+    B, T = qb.shape[0], tb_pad.shape[1]
+    i64 = torch.int64
+    ks_np, cpl_np = scan_windows(m.numpy(), n.numpy(), bw.numpy(), Wa, dmin)
+    ks = torch.from_numpy(ks_np)[:, None]
+    width = torch.from_numpy(32 * cpl_np)[:, None]
+    m64, n64, bw64 = m.long(), n.long(), bw.long()
+    n_col = n64[:, None]
+    out = scan_closed_form(B, M, Wa, dmin)
+
+    def row(H, up_edge, i, k, inw, seed):
+        """Row i over lanes k ([B, S]; H the previous row there)."""
+        j = i + dmin + k
+        trow = tb_pad.gather(1, torch.clamp(i + k, 0, T - 1)).long()
+        sub = torch.where(trow == qb[:, i - 1 : i].long(), MATCH, MISMATCH)
+        diag = H + sub
+        up = torch.cat([H[:, 1:], up_edge], dim=1) + GAP
+        c = band_centre(torch.full_like(m64, i), n64, m64)[:, None]
+        valid = (inw & (j >= 1) & (j <= n_col) & (j >= c - bw64[:, None])
+                 & (j <= c + bw64[:, None]) & (i <= m64)[:, None])
+        z = inw & (j == 0)
+        tmp = torch.where(valid, torch.maximum(diag, up), NEG)
+        tmp = torch.where(z, GAP * i, tmp)
+        v = torch.where(inw, tmp - GAP * k, torch.iinfo(i64).min)
+        cm = torch.cummax(torch.cat([seed, v], dim=1), dim=1).values[:, 1:]
+        h = cm + GAP * k
+        ptr = torch.where(h == diag, 0, torch.where(h == up, 1, 2))
+        return ptr, torch.where(inw & (valid | z), h, NEG)
+
+    def pack(ptr):
+        w = ptr.shape[1] // 4
+        return (ptr.view(B, w, 4) << torch.tensor([0, 2, 4, 6])).sum(
+            dim=2).to(torch.uint8)
+
+    # Row 1 over every lane: row 0 is GAP * j for 0 <= j <= n.
+    lanes = torch.arange(Wa, dtype=i64)[None].expand(B, Wa)
+    j0 = dmin + lanes
+    H0 = torch.where((j0 >= 0) & (j0 <= n_col), GAP * j0, NEG)
+    none = torch.full((B, 1), torch.iinfo(i64).min, dtype=i64)
+    ptr, H1 = row(H0, torch.full((B, 1), NEG, dtype=i64), 1, lanes,
+                  torch.ones_like(lanes, dtype=torch.bool), none)
+    out[:, 0] = pack(ptr)
+    # Rows 2..R over the span.
+    S = int(width.max())
+    x = torch.arange(S, dtype=i64)[None]
+    k = ks + x
+    inw = (x < width) & (k < Wa)
+    H = torch.where(inw, H1.gather(1, torch.clamp(k, 0, Wa - 1)), NEG)
+    edge = torch.full((B, 1), NEG, dtype=i64)
+    R = torch.clamp(m64 + 1, max=M)
+    nb = torch.clamp(width // 4, max=(Wa - ks) // 4)  # bytes a pair writes
+    for i in range(2, int(R.max()) + 1):
+        k0 = -i - dmin
+        seed = torch.where(ks > 0, NEG - GAP * (ks - 1), torch.iinfo(i64).min)
+        if k0 >= 0:
+            seed = torch.where(k0 < ks, torch.maximum(
+                seed, torch.tensor(GAP * i - GAP * k0)), seed)
+        ptr, H = row(H, edge, i, k, inw, seed)
+        byte = pack(ptr)
+        xb = torch.arange(S // 4)[None]
+        put = (xb < nb) & (i <= R)[:, None]
+        bidx = torch.arange(B)[:, None].expand_as(put)
+        out[bidx[put], i - 1, (ks // 4 + xb).expand_as(put)[put]] = byte[put]
+    return out
+
+
+def warp_edge_pairs(seed: int = 5) -> list[tuple[str, str]]:
+    """Test pairs for X1's warp route: spans on both sides of every CPL
+    class edge (m = 48 and m = 300, n from 1 to past m, so the band
+    drifts both ways in lane space), with the extremes that fix the
+    batch's dmin and Wa."""
+    import random
+
+    from pbdagcon_tpu_torch.simulate import random_seq
+
+    rng = random.Random(seed)
+    fams = []
+    for m, top in ((48, 200), (300, 600)):
+        q, t = random_seq(rng, m), random_seq(rng, top)
+        fams.append([(q, t[:k]) for k in range(1, top + 1)])
+    cand = [pr for fam in fams for pr in fam]
+    p = prepare_batch(cand)
+    B = len(cand)
+    _, cpl = scan_windows(p["m"][:B], p["n"][:B], p["bw"][:B], p["Wa"],
+                          p["dmin"])
+    pick, at = set(), 0
+    for fam in fams:
+        pick |= {at, at + len(fam) - 1}
+        for k in range(at + 1, at + len(fam)):
+            if cpl[k] != cpl[k - 1]:
+                pick |= {k - 1, k}
+        at += len(fam)
+    return [cand[k] for k in sorted(pick)]
+
+
+def short_pairs(seed: int = 6) -> list[tuple[str, str]]:
+    """Test pairs for X1's warp route: length-1 pairs and pairs short
+    enough that the j == 0 lane stays in the lane range past row m."""
+    import random
+
+    from pbdagcon_tpu_torch.simulate import random_seq
+
+    rng = random.Random(seed)
+    pairs = [("A", "A"), ("A", "C"), ("G", random_seq(rng, 9)),
+             (random_seq(rng, 9), "T")]
+    for k in (2, 5, 17, 40):
+        s = random_seq(rng, k)
+        pairs.append((s, s[: max(1, k - 3)]))
+    return pairs
+
+
 def traceback_plain(
     packed: torch.Tensor,  # [B, M, Wa // 4] uint8
     m: torch.Tensor,  # [B] int32
@@ -145,13 +324,16 @@ def traceback_plain(
     return moves
 
 
-def align_scan(qb, tb_pad, m, n, bw, M: int, Wa: int, dmin: int):
-    """Kernel X1's scan on a CUDA tensor, its plain version on the CPU."""
+def align_scan(qb, tb_pad, m, n, bw, M: int, Wa: int, dmin: int,
+               plan: dict | None = None):
+    """Kernel X1's scan on a CUDA tensor (on the route of `plan`,
+    `align_cuda.scan_plan`), its plain version on the CPU."""
     if qb.device.type == "cpu":
         return align_scan_plain(qb, tb_pad, m, n, bw, M, Wa, dmin)
     from pbdagcon_tpu_torch.ops import align_cuda
 
-    return align_cuda.align_scan_cuda(qb, tb_pad, m, n, bw, M, Wa, dmin)
+    return align_cuda.align_scan_cuda(qb, tb_pad, m, n, bw, M, Wa, dmin,
+                                      plan)
 
 
 def traceback(packed, m, n, M: int, Wa: int, dmin: int, L: int):
@@ -210,7 +392,12 @@ def device_moves(p: dict, device) -> np.ndarray:
     qb, tb, m, n, bw = (
         torch.from_numpy(p[k]).to(dev) for k in ("qb", "tb_pad", "m", "n", "bw")
     )
-    packed = align_scan(qb, tb, m, n, bw, M, Wa, dmin)
+    plan = None
+    if dev.type == "cuda":
+        from pbdagcon_tpu_torch.ops import align_cuda
+
+        plan = align_cuda.scan_plan(p["m"], p["n"], p["bw"], M, Wa, dmin)
+    packed = align_scan(qb, tb, m, n, bw, M, Wa, dmin, plan)
     return traceback(packed, m, n, M, Wa, dmin, L).cpu().numpy()
 
 

@@ -108,8 +108,10 @@ class PipelineStats:
     # (producer thread), "pack", "dispatch" (upload + kernel + copy-back
     # enqueued; with the blocked solve, its Kleene rounds too),
     # "colshard" (targets past the V ladder: pack, solve and fetch, or
-    # the eligibility check that sends them to the host DP), "wait"
-    # (emitter blocked on the batch's CUDA event), "emit" (native
+    # the eligibility check that sends them to the host DP), "host_dp"
+    # (the exact host DP of the targets the colshard declines, and of
+    # the Python path's oversize targets: stats.fallback "oversize"),
+    # "wait" (emitter blocked on the batch's CUDA event), "emit" (native
     # backtrack + FASTA). The stages overlap across
     # threads, so they may sum past the wall time.
     stage_s: dict[str, float] = dataclasses.field(default_factory=dict)
@@ -274,8 +276,11 @@ def run_pipeline(
             if lin is None:
                 assert grp is not None
                 stats.fallback("oversize")
+                t0 = time.perf_counter()
                 hl = linearize_group(grp, cfg, stats)
-                res = consensus_for_lin(hl, host_scores(hl), cfg)
+                scores = host_scores(hl)
+                stats.add_time("host_dp", t0)
+                res = consensus_for_lin(hl, scores, cfg)
                 sid = grp.sid
             else:
                 sid = lin.sid
@@ -516,7 +521,9 @@ def _run_stream_native(
                         stats.add_time("colshard", t0)
                         if s is None:
                             stats.fallback("oversize")
+                            t0 = time.perf_counter()
                             s = eng.target_scores(offset + i, int(ns[i]))
+                            stats.add_time("host_dp", t0)
                         else:
                             stats.batches += 1
                             stats.colshard += 1

@@ -168,6 +168,33 @@ def test_oversize_route_byte_equal_with_reference_fallbacks(w_buckets):
         assert stats.colshard >= 1, "colshard path not taken"
 
 
+@pytest.mark.parametrize("use_native", [True, False])
+def test_oversize_host_dp_is_timed(use_native):
+    """The host DP of every declined target past the V ladder
+    (v_buckets=(256,)) is timed under stage_s["host_dp"], on the native
+    path and on the Python path, and the FASTA stays the host
+    backend's."""
+    if use_native:
+        _skip_without_native()
+    text = _m5_text(21, 4, 500, 12)
+    kw = dict(use_native=use_native, min_weight=3, min_length=50)
+    want = io.StringIO()
+    run_stream(io.StringIO(text), FastaWriter(want),
+               DagconConfig(backend="host", **kw))
+    got = io.StringIO()
+    stats = run_stream(io.StringIO(text), FastaWriter(got), DagconConfig(
+        backend="cuda", device="cpu", v_buckets=(256,),
+        w_buckets=(16,), **kw))
+    assert got.getvalue() == want.getvalue()
+    declined = stats.fallback_reasons.get("oversize", 0)
+    assert declined >= 1, "no target took the host DP"
+    assert stats.stage_s["host_dp"] > 0.0
+    if use_native:
+        assert declined + stats.colshard == stats.targets == 4
+    else:
+        assert declined == stats.targets == 4
+
+
 def test_oversize_route_raises_on_solve_failure(monkeypatch):
     """A failure inside the column-sharded solve reaches the caller: no
     host DP hides it (the reference's catch-all is not carried over)."""

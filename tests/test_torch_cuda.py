@@ -663,8 +663,11 @@ def _align_pairs(case: str):
     return pairs
 
 
-@pytest.mark.parametrize("case", ["random", "skew", "identical"])
-def test_align_kernels_match_plain_versions(card, case):
+@pytest.mark.parametrize("case,route", [
+    ("random", "warp"), ("random", "cta"), ("skew", "cta"),
+    ("identical", "warp"), ("identical", "cta"),
+])
+def test_align_kernels_match_plain_versions(card, case, route):
     from pbdagcon_tpu_torch.aligner import align_pair
     from pbdagcon_tpu_torch.ops import align_cuda, align_tpu
 
@@ -676,8 +679,12 @@ def test_align_kernels_match_plain_versions(card, case):
     args = [torch.from_numpy(np.ascontiguousarray(p[k][: len(pairs)]))
             .to(card) for k in ("qb", "tb_pad", "m", "n", "bw")]
     M, Wa, dmin, L = p["M"], p["Wa"], p["dmin"], p["L"]
+    plan = align_cuda.scan_plan(args[2], args[3], args[4], M, Wa, dmin,
+                                route=route)
+    assert align_cuda.scan_plan(args[2], args[3], args[4], M, Wa, dmin)[
+        "route"] == ("cta" if case == "skew" else "warp")
     before = dict(align_cuda.launches)
-    packed = align_tpu.align_scan(*args, M, Wa, dmin)
+    packed = align_tpu.align_scan(*args, M, Wa, dmin, plan)
     moves = align_tpu.traceback(packed, args[2], args[3], M, Wa, dmin, L)
     assert align_cuda.launches == {k: v + 1 for k, v in before.items()}
     want = align_tpu.align_scan_plain(*args, M, Wa, dmin)
@@ -687,6 +694,70 @@ def test_align_kernels_match_plain_versions(card, case):
     assert torch.equal(moves, want_mv)
     assert align_tpu.align_batch(pairs, card) == [
         align_pair(q, t) for q, t in pairs]
+
+
+@pytest.mark.parametrize("case", ["cpl-edges", "short", "ladder"])
+def test_align_scan_warp_route_edge_cases(card, case):
+    """The warp route on the CPU model's edge cases
+    (tests/test_torch_align_plan.py): spans on both sides of every CPL
+    class edge, bands drifting both ways, length-1 and short pairs, and
+    a batch with its ladder padding (m = n = 1, bw = 64) whose B is not
+    a multiple of the warps a CTA holds."""
+    from pbdagcon_tpu_torch.ops import align_cuda, align_tpu
+
+    pairs = {"cpl-edges": align_tpu.warp_edge_pairs,
+             "short": align_tpu.short_pairs,
+             "ladder": lambda: _align_pairs("random")[:37]}[case]()
+    p = align_tpu.prepare_batch(pairs)
+    B = len(p["m"]) if case == "ladder" else len(pairs)
+    assert case != "ladder" or B == 64
+    args = [torch.from_numpy(np.ascontiguousarray(p[k][:B])).to(card)
+            for k in ("qb", "tb_pad", "m", "n", "bw")]
+    M, Wa, dmin = p["M"], p["Wa"], p["dmin"]
+    plan = align_cuda.scan_plan(args[2], args[3], args[4], M, Wa, dmin,
+                                route="warp")
+    got = align_cuda.align_scan_cuda(*args, M, Wa, dmin, plan)
+    cut = B - 3  # and a B that is not a multiple of the warps a CTA holds
+    assert cut % 8
+    got_cut = align_cuda.align_scan_cuda(
+        *(a[:cut].contiguous() for a in args), M, Wa, dmin, align_cuda.scan_plan(
+            args[2][:cut], args[3][:cut], args[4][:cut], M, Wa, dmin,
+            route="warp", warps=8))
+    want = align_tpu.align_scan_plain(*args, M, Wa, dmin)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got_cut, want[:cut])
+
+
+def test_align_scan_refuses_a_bad_plan(card):
+    from pbdagcon_tpu_torch.ops import align_cuda, align_tpu
+
+    p = align_tpu.prepare_batch(_align_pairs("identical"))
+    qb, tb, m, n, bw = (torch.from_numpy(p[k]).to(card)
+                        for k in ("qb", "tb_pad", "m", "n", "bw"))
+    M, Wa, dmin = p["M"], p["Wa"], p["dmin"]
+    plan = align_cuda.scan_plan(m, n, bw, M, Wa, dmin, route="warp")
+    before = dict(align_cuda.launches)
+    B = len(p["m"])
+    order9 = np.full(-(-B // 9) * 9, -1, dtype=np.int32)
+    order9[:B] = np.arange(B)
+    for bad in ({**plan, "warps": 9, "smem": 9 * align_cuda.warp_slot(M),
+                 "order": order9},
+                {**plan, "cpl_max": 6}, {**plan, "smem": plan["smem"] - 16},
+                {"route": "cta", "smem": align_cuda.scan_smem(Wa) + 4}):
+        with pytest.raises(RuntimeError, match="align_scan launch"):
+            align_cuda.align_scan_cuda(qb, tb, m, n, bw, M, Wa, dmin, bad)
+    with pytest.raises(ValueError):
+        align_cuda.align_scan_cuda(qb, tb, m, n, bw, M, Wa, dmin,
+                                   {"route": "rows", "smem": 0})
+    with pytest.raises(ValueError, match="order"):  # a plan of another B
+        align_cuda.align_scan_cuda(qb, tb, m, n, bw, M, Wa, dmin,
+                                   {**plan, "order": plan["order"][:-8]})
+    skew = align_tpu.prepare_batch(_align_pairs("skew"))
+    with pytest.raises(ValueError, match="warp route"):
+        align_cuda.scan_plan(skew["m"], skew["n"], skew["bw"], skew["M"],
+                             skew["Wa"], skew["dmin"], route="warp")
+    assert align_cuda.launches == before
 
 
 def test_align_wrappers_reject_what_they_do_not_take(card):
