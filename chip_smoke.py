@@ -60,13 +60,18 @@ Phases, in order; any failure exits non-zero before the last line:
    against its plain versions, array-equal on the packed pointers and
    the moves: the scan on both routes (`align_cuda.scan_plan`: "warp",
    a warp per pair, and "cta"; "cta" only where the spans outgrow a
-   warp) on random pairs (B = 77), length skew (Wa > 1024: "cta"),
-   identical sequences of lengths 1-2000, the warp route's edge cases
-   (spans at every CPL class edge, length-1 and short pairs), then the
-   first 1024 raw records of the bench workload, where both kernels are
-   timed with CUDA events beside the bound (bytes or int32 operations,
-   whichever is larger) and the plain versions, and the scan's two
-   routes in turns (cta, warp, warp, cta).
+   warp) and the traceback on both of its routes
+   (`align_cuda.traceback_plan`: "warp", a warp per pair over staged
+   windows, and "thread") on random pairs (B = 77), length skew
+   (Wa > 1024: "cta"), identical sequences of lengths 1-2000, the warp
+   route's edge cases (spans at every CPL class edge, length-1 and
+   short pairs), the traceback also on random pointer tensors (default
+   and tiny windows, L cut to 37), then the first 1024 raw records of
+   the bench workload, where both kernels are timed with CUDA events
+   beside the bound (bytes or int32 operations, whichever is larger)
+   and the plain versions, each with its routes in turns (cta, warp,
+   warp, cta; thread, warp, warp, thread), and the traceback also on
+   the batch's first 32 pairs (dazcon's rung).
 8. The `-a` device path at full width: the bench workload through
    `run_stream` (cuda backend, align_backend "device"), FASTA byte-equal
    to the single-thread native engine, the align and dp_scan launches
@@ -100,7 +105,9 @@ S s") as it ends. Then a JSON line of kernels (each with its launches
 on the main paths, max_abs_err, ms, plain_ms, bound_ms, bound_by and
 library_ms; hist and scatter also with their masked window and their
 per-call readings, align_scan with its route and the "cta" route's
-ms), and the last line:
+ms, align_traceback with its route, the "thread" route's ms, the chain
+figure (the longest path's steps, ns a step) and the B = 32 call), and
+the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 """
 
@@ -947,7 +954,8 @@ def main() -> int:
     def hold_x1(pairs, what, B=None) -> tuple:
         """Both scan routes where the plan takes the batch ("cta" only
         past a warp's span), each array-equal to the plain version, and
-        the traceback of the plan's route."""
+        the traceback on both of its routes ("warp", the plan's, and
+        "thread"), each array-equal to the plain version."""
         p, args = x1_args(pairs, B)
         M, Wa, dmin, L = p["M"], p["Wa"], p["dmin"], p["L"]
         auto = align_cuda.scan_plan(args[2], args[3], args[4], M, Wa, dmin)
@@ -963,21 +971,38 @@ def main() -> int:
             oks[r] = torch.equal(g, want)
             if r == auto["route"]:
                 got = g
-        mv = align_cuda.traceback_cuda(got, args[2], args[3], M, Wa, dmin, L)
+        if align_cuda.traceback_plan(args[2], args[3], M, Wa, L)[
+                "route"] != "warp":
+            raise SystemExit(f"chip_smoke: the traceback plan did not take "
+                             f"the warp route ({what})")
         mv_want = align_tpu.traceback_plain(want, args[2], args[3], M, Wa,
                                             dmin, L)
-        torch.cuda.synchronize()
-        worst_a["align_traceback"] = max(worst_a["align_traceback"],
-                                         int_err(mv, mv_want))
-        ok = all(oks.values()) and torch.equal(mv, mv_want)
+        tb_oks, mv = hold_tb(got, args[2], args[3], M, Wa, dmin, L, mv_want)
+        ok = all(oks.values()) and all(tb_oks.values())
         log(f"X1 {what}: B={args[0].shape[0]} M={M} Wa={Wa} dmin={dmin} "
             f"L={L}, plan {auto['route']}; scan "
             + ", ".join(f"{r} {'array-equal' if v else 'MISMATCH'}"
                         for r, v in oks.items())
-            + f", moves {'equal' if torch.equal(mv, mv_want) else 'MISMATCH'}")
+            + "; moves " + ", ".join(f"{r} {'equal' if v else 'MISMATCH'}"
+                                     for r, v in tb_oks.items()))
         if not ok:
             raise SystemExit(f"chip_smoke: X1 != plain version ({what})")
         return p, args, got, mv
+
+    def hold_tb(packed, m, n, M, Wa, dmin, L, want, **kw) -> tuple:
+        """The traceback on its "warp" route (the plan's, and with `kw`
+        forced) and its "thread" route against the plain version's
+        moves `want`: ({route: equal}, the warp route's moves)."""
+        oks, moves = {}, {}
+        for r in ("warp", "thread"):
+            moves[r] = align_cuda.traceback_cuda(
+                packed, m, n, M, Wa, dmin, L, align_cuda.traceback_plan(
+                    m, n, M, Wa, L, route=r, **(kw if r == "warp" else {})))
+            torch.cuda.synchronize()
+            worst_a["align_traceback"] = max(worst_a["align_traceback"],
+                                             int_err(moves[r], want))
+            oks[r] = torch.equal(moves[r], want)
+        return oks, moves["warp"]
 
     arng = random.Random(SEED + 7)
     noise = NoiseProfile(sub=0.05, ins=0.12, dele=0.08)
@@ -1002,6 +1027,33 @@ def main() -> int:
     # The warp route's edge cases (tests/test_torch_align_plan.py).
     hold_x1(align_tpu.warp_edge_pairs(), "spans at every CPL class edge")
     hold_x1(align_tpu.short_pairs(), "length-1 and short pairs")
+    # The traceback on random pointer tensors (walks that leave every
+    # window: long left runs, climbing lanes, pointer 3s; lanes below 0
+    # and past Wa - 1), on the default and a tiny forced window, with L
+    # cut short of the paths and off a 16-byte multiple.
+    prng = np.random.default_rng(SEED)
+    for probs, L_cut in (((0.2, 0.1, 0.7, 0.0), 700),
+                         ((0.1, 0.7, 0.2, 0.0), 700),
+                         ((0.25, 0.25, 0.25, 0.25), 700),
+                         ((0.3, 0.3, 0.4, 0.0), 37)):
+        Bq, Mq, Waq, dq = 200, 300, 256, -64
+        fl = prng.choice(4, size=(Bq, Mq, Waq // 4, 4), p=probs)
+        pk = torch.from_numpy((fl.astype(np.uint8) << np.array(
+            [0, 2, 4, 6], np.uint8)).sum(axis=3, dtype=np.uint8)).to(dev)
+        mq = torch.from_numpy(prng.integers(0, Mq + 1, Bq).astype(
+            np.int32)).to(dev)
+        nq = torch.from_numpy(prng.integers(0, 501, Bq).astype(
+            np.int32)).to(dev)
+        want_q = align_tpu.traceback_plain(pk, mq, nq, Mq, Waq, dq, L_cut)
+        for kw in ({}, {"rows": 8, "window": 32}):
+            oks, _ = hold_tb(pk, mq, nq, Mq, Waq, dq, L_cut, want_q, **kw)
+            log(f"X1 traceback on random pointers {probs} (B={Bq} M={Mq} "
+                f"Wa={Waq} L={L_cut}, warp plan {kw or 'default'}): "
+                + ", ".join(f"{r} {'equal' if v else 'MISMATCH'}"
+                            for r, v in oks.items()))
+            if not all(oks.values()):
+                raise SystemExit("chip_smoke: X1 traceback != plain version "
+                                 "(random pointers)")
     for what, prs in (("random pairs", pairs), ("length skew", skew),
                       ("identical", same)):
         if align_tpu.align_batch(prs, dev) != [align_pair(q, t) for q, t in prs]:
@@ -1023,7 +1075,17 @@ def main() -> int:
     scan_c = lambda: align_cuda.align_scan_cuda(*args, M, Wa, dmin,
                                                 plans["cta"])
     scan_p = lambda: align_tpu.align_scan_plain(*args, M, Wa, dmin)
-    tb_k = lambda: align_cuda.traceback_cuda(got, args[2], args[3], M, Wa, dmin, L)
+    tb_plans = {}
+    for r in ("warp", "thread"):
+        tb_plans[r] = align_cuda.traceback_plan(p["m"], p["n"], M, Wa, L,
+                                                route=r)
+        if "order" in tb_plans[r]:  # on the card once, not every launch
+            tb_plans[r]["order"] = torch.from_numpy(
+                tb_plans[r]["order"]).to(dev)
+    tb_k = lambda: align_cuda.traceback_cuda(got, args[2], args[3], M, Wa,
+                                             dmin, L, tb_plans["warp"])
+    tb_t = lambda: align_cuda.traceback_cuda(got, args[2], args[3], M, Wa,
+                                             dmin, L, tb_plans["thread"])
     tb_p = lambda: align_tpu.traceback_plain(got, args[2], args[3], M, Wa, dmin, L)
     # In turns (plain, kernel, kernel, plain).
     x1 = {}
@@ -1044,6 +1106,55 @@ def main() -> int:
     log(f"align_scan routes in turns (cta, warp, warp, cta): {ca} / {wa} / "
         f"{wb} / {cb} ms; warp plan {plans['warp']['warps']} pairs a CTA, "
         f"CPL classes {plans['warp']['cpl_counts']} [{card}]")
+    # The traceback's routes in turns (thread, warp, warp, thread), on the
+    # bench batch and on its first 32 pairs (dazcon's rung), each beside
+    # the plain version; the chain figure is the longest path's steps
+    # and the warp route's ns a step.
+    mv_np = mv.cpu().numpy()
+    steps_np = (mv_np != 3).sum(axis=1)
+    tt_a = time_ms(tb_t, 10)
+    tw_a = time_ms(tb_k, 10)
+    tw_b = time_ms(tb_k, 10)
+    tt_b = time_ms(tb_t, 10)
+    longest = int(steps_np.max())
+    x1["align_traceback"].update(
+        thread_ms=(tt_a + tt_b) / 2, route_turns=(tt_a, tw_a, tw_b, tt_b),
+        chain={"longest_steps": longest,
+               "ns_per_step": (tw_a + tw_b) / 2 * 1e6 / longest})
+    log(f"align_traceback routes in turns (thread, warp, warp, thread) at "
+        f"B={len(p['m'])}: {tt_a} / {tw_a} / {tw_b} / {tt_b} ms; longest path "
+        f"{longest} steps, {(tw_a + tw_b) / 2 * 1e6 / longest:.1f} ns a step on "
+        f"the warp route; plan {tb_plans['warp']['warps']} pairs a CTA, "
+        f"{tb_plans['warp']['rows']} rows a stage, window "
+        f"{tb_plans['warp']['window']} bytes [{card}]")
+    B32 = 32
+    pk32, m32, n32 = (x[:B32].contiguous() for x in (got, args[2], args[3]))
+    p32 = {r: align_cuda.traceback_plan(p["m"][:B32], p["n"][:B32], M, Wa, L,
+                                        route=r) for r in ("warp", "thread")}
+    if p32["warp"]["route"] != "warp" or p32["warp"]["warps"] != 1:
+        raise SystemExit(f"chip_smoke: the B=32 traceback plan is not one "
+                         f"warp a CTA on the warp route ({p32['warp']})")
+    p32["warp"]["order"] = torch.from_numpy(p32["warp"]["order"]).to(dev)
+    f32 = {r: (lambda pl=pl: align_cuda.traceback_cuda(
+        pk32, m32, n32, M, Wa, dmin, L, pl)) for r, pl in p32.items()}
+    want32 = align_tpu.traceback_plain(pk32, m32, n32, M, Wa, dmin, L)
+    for r, fn in f32.items():
+        got32 = fn()
+        torch.cuda.synchronize()
+        if not torch.equal(got32, want32):
+            raise SystemExit(f"chip_smoke: X1 traceback at B=32 ({r}) != "
+                             "plain version")
+    t32 = [time_ms(f32[r], 10) for r in ("thread", "warp", "warp", "thread")]
+    pl32 = [time_ms(lambda: align_tpu.traceback_plain(
+        pk32, m32, n32, M, Wa, dmin, L), 1) for _ in range(2)]
+    longest32 = int(steps_np[:B32].max())
+    x1["align_traceback"]["b32_call"] = {
+        "ms": (t32[1] + t32[2]) / 2, "thread_ms": (t32[0] + t32[3]) / 2,
+        "plain_ms": sum(pl32) / 2, "route_turns": t32,
+        "longest_steps": longest32}
+    log(f"align_traceback at B=32 (first 32 pairs), in turns (thread, warp, "
+        f"warp, thread): {t32} ms, plain PyTorch {pl32} ms; longest path "
+        f"{longest32} steps [{card}]")
     # Bounds. Scan: the padded inputs read once and the pointers written
     # once, against the int32 operations the pairs' band cells need (6
     # per cell: diag and up adds, their max, the left chain's max, the
@@ -1060,8 +1171,7 @@ def main() -> int:
         cells += int(np.maximum(0, hi - lo + 1).sum())
     scan_bytes = nbytes(*args, got)
     scan_ops = 6 * cells
-    mv_np = mv.cpu().numpy()
-    path_len = int((mv_np != 3).sum())
+    path_len = int(steps_np.sum())
     tb_bytes = path_len + nbytes(args[2], args[3], mv)
     for name, nb_, ops in (("align_scan", scan_bytes, scan_ops),
                            ("align_traceback", tb_bytes, 0)):
@@ -1071,8 +1181,7 @@ def main() -> int:
                         bound_by="bytes" if t_bytes >= t_ops else "operations",
                         bytes=nb_, int32_ops=ops)
         log(f"{name} at B={Bb} M={M} Wa={Wa} (rows {M}, lanes {Wa}; band cells "
-            f"{cells}, path steps {path_len}): kernel "
-            f"{'(warp route) ' if name == 'align_scan' else ''}"
+            f"{cells}, path steps {path_len}): kernel (warp route) "
             f"{x1[name]['turns'][1]} / "
             f"{x1[name]['turns'][2]} ms, plain PyTorch {x1[name]['turns'][0]} / "
             f"{x1[name]['turns'][3]} ms, bound {x1[name]['bound_ms']} ms "
@@ -1119,9 +1228,12 @@ def main() -> int:
     order = ("host", "device", "device", "device", "host", "host")
     aruns = {"host": [], "device": []}
     align_launches = dict.fromkeys((*align_cuda.launches, "dp_scan"), 0)
+    tb_routes = dict.fromkeys(align_cuda.traceback_routes, 0)
     for which in order:
         for k in align_cuda.launches:
             align_cuda.launches[k] = 0
+        for k in tb_routes:
+            align_cuda.traceback_routes[k] = 0
         dp_cuda.launches = 0
         aruns[which].append(run_align(acfg if which == "device" else cfg))
         run_launches = {**align_cuda.launches, "dp_scan": dp_cuda.launches}
@@ -1134,13 +1246,21 @@ def main() -> int:
                                  f"its kernels ({run_launches})")
             for k, v in run_launches.items():
                 align_launches[k] += v
+            for k, v in align_cuda.traceback_routes.items():
+                tb_routes[k] += v
+    # The plan takes the "warp" route for every batch: each traceback of
+    # the -a device runs went there.
+    if tb_routes["warp"] != align_launches["align_traceback"]:
+        raise SystemExit(f"chip_smoke: an -a device run's traceback left the "
+                         f"warp route ({tb_routes})")
     if any(r[2] != fasta_host for rs in aruns.values() for r in rs):
         raise SystemExit("chip_smoke: -a device path FASTA != single-core C++")
     _, astats, _ = aruns["device"][-1]
     if "align" not in astats.stage_s or astats.targets != TARGETS:
         raise SystemExit(f"chip_smoke: bad -a device run: {astats}")
     log(f"-a device path: targets={astats.targets} batches={astats.batches} "
-        f"launches over its 3 runs {align_launches}; FASTA byte-equal to the "
+        f"launches over its 3 runs {align_launches}, traceback by route "
+        f"{tb_routes}; FASTA byte-equal to the "
         f"single-thread native engine (host aligner) [{card}]")
     stages = ", ".join(f"{k} {v:.4f}" for k, v in astats.stage_s.items())
     log(f"-a device host-clock seconds by stage (last run, wall "
@@ -1668,7 +1788,11 @@ def main() -> int:
         # No one PyTorch call computes a banded alignment scan or walk.
         "library_ms": None,
         **({"scan_route": "warp", "cta_ms": x1[name]["cta_ms"]}
-           if name == "align_scan" else {}),
+           if name == "align_scan" else {
+               "traceback_route": max(tb_routes, key=tb_routes.get),
+               "thread_ms": x1[name]["thread_ms"],
+               "chain": x1[name]["chain"],
+               "b32_call": x1[name]["b32_call"]}),
     } for name, line in (("align_scan", 88), ("align_traceback", 47))] + [{
         "name": name,
         "route": "cuda",

@@ -62,9 +62,40 @@
 //      4c + r at bits 2r of byte c) and written to device memory.
 // Two barriers per row.
 //
-// The traceback, one thread per pair, walks the pointers from device
-// memory from (m, n) for L steps and writes one move a step (0 diag,
-// 1 up, 2 left, 3 done); after (0, 0) the rest of the row is 3.
+// The traceback walks the pointers from (m, n) for L steps and writes
+// one move a step (0 diag, 1 up, 2 left, 3 done); after (0, 0) the rest
+// of the row is 3. It is a chain of dependent pointer reads, ~800 a pair
+// on the bench batch, and each step but a left one goes down a row. Two
+// routes, chosen by the plan (`ops/align_cuda.py::traceback_plan`):
+//
+// Route "warp" (`align_traceback_warp_kernel`), the rule: one warp per
+// pair, up to 8 pairs a CTA, the pairs dealt longest first. The walk
+// reads its pointers from a staged window in shared memory: stage c
+// holds rows m - c R .. m - c R - R + 1 (R rows a stage) over `window`
+// bytes (4 lanes a byte; halved while wider than a row) from a 16-byte
+// boundary, placed when the walk
+// enters the stage before it, at lane l, from `window` lanes left of l
+// (a step moves the lane by one at most, right on an up step). Two
+// stages in a ring: on entering stage c the warp's lanes issue stage
+// c + 1 as 16-byte cp.async copies, wait for stage c, and write pointer
+// 1 on each of its rows' j == 0 lane (the reference's rule), so the
+// walk itself knows nothing of j. The walk goes an event at a time: lane
+// t reads the pointer of row r + t at the walk's lane x, two ballots
+// give the run of diagonal steps before the first other pointer (or
+// the stage's end) and that pointer, and the lanes write the run's
+// moves at once; the up or left step at its end moves x. So the chain
+// of dependent reads is one a non-diagonal step (~15% of the bench
+// batch's steps), not one a step. A step outside the window (or on row
+// 0, or with a lane outside 0..Wa - 1, whose byte index clamps) reads
+// device memory by the exact rule: the route takes any pointer tensor,
+// not only the scan's. The moves go to a ring of TB_RING bytes in
+// shared memory, and out as 16-byte stores (the row's partial blocks at
+// either end byte by byte: row b starts at b * L), the tail of 3s by
+// the whole warp.
+//
+// Route "thread" (`align_traceback_kernel`, the first design): one
+// thread per pair, each step a dependent one-byte load from device
+// memory; kept for comparison, taken only by a forced plan.
 //
 // What bounds it on this card: the scan's M sequential rows. Per pair it
 // reads M + (M + Wa) bytes and writes M * Wa / 4, a few hundred KB, and
@@ -79,8 +110,14 @@
 // the second pass ~530, the stores ~280, by the -D X1_PROF=1 clocks of
 // `tools/align_ablate.py`), with its scheduler to itself for most of
 // the run: one warp's integer instructions (16 lanes a cycle a
-// scheduler) bound it. The traceback is a chain of dependent loads per
-// pair (latency, not bandwidth).
+// scheduler) bound it. The traceback moves a few MB (the pointer bytes
+// its paths read and the moves), microseconds at the memory rate; its
+// time is the longest path's dependent steps. On the "thread" route a
+// step is a round trip to device memory (the pointers have left L2 by
+// then); on the "warp" route an event (a diagonal run and the step
+// after it) is a shared-memory load, two ballots and ~50 integer
+// instructions (~250 cycles by the -D X1_PROF=1 clocks), with the next
+// stage's copies in flight behind the walk.
 
 #include <climits>
 #include <cstdint>
@@ -618,6 +655,325 @@ align_scan_warp_kernel(const uint8_t* __restrict__ qb,
 #endif
 }
 
+// ---- the traceback's route "warp" ----
+
+// Move bytes a warp buffers before they go out (`ops/align_tpu.py::
+// TB_RING`), and stages in its ring of pointer windows.
+constexpr int TB_RING = 512;
+constexpr int TB_STAGES = 2;
+constexpr int TB_MAX_WINDOW = 256;
+constexpr int TB_MAX_ROWS = 256;
+// Ablation build of the warp route (`tools/align_ablate.py`; exact, only
+// its time differs): bit 1 cuts the look-ahead to one row, so each event
+// takes one step.
+#ifndef X1_TB_ABLATE
+#define X1_TB_ABLATE 0
+#endif
+#if X1_PROF
+// Per pair (-D X1_PROF=1): start and end (%globaltimer, ns), steps,
+// pointer reads from device memory (outside the staged windows), steps
+// walked in the windows, clock64() cycles entering stages (issuing the
+// next, waiting, marking), cycles writing moves out, SM, cycles walking
+// in the windows, stages entered, cycles waiting for stages, events;
+// read by `dagcon_x1_tb_prof_read`.
+constexpr int kTbProf = 12;
+__device__ unsigned long long g_x1_tb_prof[kProfPairs][kTbProf];
+#endif
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+// Bytes [g, gt) of `moves` (offsets within one pair's row): from the
+// warp's ring at g mod TB_RING, or 3 where ring is null. The partial
+// 16-byte blocks at either end byte by byte (a block there may hold a
+// neighbour row's bytes), the whole blocks between them as 16-byte
+// stores by the warp's lanes.
+__device__ __forceinline__ void tb_put(uint8_t* __restrict__ moves,
+                                       const uint8_t* ring, long long g,
+                                       long long gt, int lane) {
+  if (gt <= g) return;
+  const long long ha = min(gt, (g + 15) & ~15LL);
+  const long long ta = max(ha, gt & ~15LL);
+  if (lane < ha - g) {
+    moves[g + lane] = ring ? ring[(g + lane) & (TB_RING - 1)] : 3;
+  }
+  for (long long x = ha + 16LL * lane; x < ta; x += 16 * 32) {
+    *reinterpret_cast<uint4*>(moves + x) =
+        ring ? *reinterpret_cast<const uint4*>(ring + (x & (TB_RING - 1)))
+             : make_uint4(0x03030303u, 0x03030303u, 0x03030303u,
+                          0x03030303u);
+  }
+  if (lane < gt - ta) {
+    moves[ta + lane] = ring ? ring[(ta + lane) & (TB_RING - 1)] : 3;
+  }
+}
+
+// One step by the reference's rules, its pointer from device memory.
+__device__ __forceinline__ unsigned tb_step(const uint8_t* flat, int i,
+                                            int j, int Wa4, int dmin) {
+  if (i == 0) return 2u;
+  if (j == 0) return 1u;
+  const int lane = j - i - dmin;
+  const int c = min(max(lane >> 2, 0), Wa4 - 1);
+  return (flat[(size_t)(i - 1) * Wa4 + c] >> (2 * (lane & 3))) & 3u;
+}
+
+// A stage slot's rows are the window's bytes and 16 bytes of padding (so
+// the 32 rows a look-ahead reads fall on 8 banks, not 2).
+constexpr int TB_ROW_PAD = 16;
+
+__host__ __device__ constexpr int tb_row_bytes(int WB) {
+  return WB + TB_ROW_PAD;
+}
+
+// Shared memory of one warp: two slots of R rows and the ring of moves
+// (`ops/align_cuda.py::tb_slot` computes the same).
+__host__ __device__ constexpr int tb_slot(int R, int WB) {
+  return TB_STAGES * R * tb_row_bytes(WB) + TB_RING;
+}
+
+__device__ __forceinline__ unsigned lds32(const uint8_t* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+__global__ void __launch_bounds__(MAX_WARPS_PER_CTA * 32)
+align_traceback_warp_kernel(const uint8_t* __restrict__ packed,
+                            const int* __restrict__ m_,
+                            const int* __restrict__ n_,
+                            uint8_t* __restrict__ moves,
+                            const int* __restrict__ order, int M, int Wa,
+                            int dmin, int L, int R, int WB) {
+  extern __shared__ __align__(16) uint8_t tsm[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int b = order[blockIdx.x * (blockDim.x >> 5) + warp];
+  if (b < 0) return;
+  const int RS = tb_row_bytes(WB);
+  const int slot_bytes = R * RS;
+  uint8_t* st = tsm + (size_t)warp * tb_slot(R, WB);
+  uint8_t* ring = st + TB_STAGES * slot_bytes;
+  const int Wa4 = Wa >> 2;
+  int WBe = WB;  // the window's bytes a row: a power of two within the row
+  while (WBe > Wa4) WBe >>= 1;
+  const int XW = 4 * WBe;  // and lanes
+  const int margin = WB;   // lanes left of the walk a window holds
+  const uint8_t* flat = packed + (size_t)b * M * Wa4;
+  const int m = m_[b];
+  const int n = n_[b];
+  const long long g0 = (long long)b * L;
+  const int rb = (int)(g0 & (TB_RING - 1));
+  long long gf = g0;  // moves before gf are out
+  int i = m, j = n, s = 0;
+  int cur = -1;             // the stage the walk is in
+  int hi = 0, lo = 1 << 30;  // and its top and bottom rows
+  int cb0 = 0, cb1 = 0;     // the window's first byte, stage slots 0 and 1
+  // This lane's 16-byte pieces of a stage: piece k = lane + 32 t is row
+  // k / parts, part k % parts (parts a power of two, 1..16).
+  const int parts = WBe >> 4;
+  const int dr = 32 / parts;
+  const int r_l = lane / parts, q_l = lane % parts;
+#if X1_PROF
+  const unsigned long long t_start = x1_now();
+  unsigned long long n_slow = 0, n_fast = 0, cyc_stage = 0, cyc_out = 0;
+  unsigned long long cyc_walk = 0, n_stage = 0, cyc_wait = 0, n_event = 0;
+#endif
+
+  // Stage c (rows m - cR .. down to max(1, m - cR - R + 1)) into slot
+  // c & 1, the window placed for a walk at lane lam: 16-byte cp.async
+  // copies, one commit group a stage.
+  auto issue = [&](int c, int lam) {
+    const int top = m - c * R;
+    const int nr = max(0, top - max(1, top - R + 1) + 1);
+    const int cbx = min(max(((lam - margin) >> 2) & ~15, 0), Wa4 - WBe);
+    if (c & 1) {
+      cb1 = cbx;
+    } else {
+      cb0 = cbx;
+    }
+    uint8_t* dst = st + (c & 1) * slot_bytes + r_l * RS + 16 * q_l;
+    const uint8_t* src = flat + (size_t)(top - 1 - r_l) * Wa4 + cbx + 16 * q_l;
+    for (int r = r_l; r < nr; r += dr) {
+      cp_async16(dst, src);
+      dst += dr * RS;
+      src -= (size_t)dr * Wa4;
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  if (m >= 1) {
+    issue(0, n - m - dmin);
+    issue(1, n - m - dmin);
+  }
+  bool dead = false;  // a pointer 3: the walk stays put, 3 from here on
+  for (;;) {
+    // The moves the ring may take before its whole blocks go out (an
+    // event writes up to 33), and the row's end.
+    const int sl = (int)min((long long)L, gf - g0 + TB_RING - 16);
+    if (s >= L) break;
+    if (s + 33 > gf - g0 + TB_RING - 16 && ((g0 + s) & ~15LL) > gf) {
+#if X1_PROF
+      const unsigned long long t0 = clock64();
+#endif
+      __syncwarp();
+      const long long gt = (g0 + s) & ~15LL;
+      tb_put(moves, ring, gf, gt, lane);
+      gf = gt;
+      __syncwarp();
+#if X1_PROF
+      cyc_out += clock64() - t0;
+#endif
+      continue;
+    }
+    if (i == 0 && j == 0) break;
+    if (i >= 1) {
+      if (i < lo) {
+        // Entering stage cur + 1 at its top row: issue the stage after
+        // it into the slot the stage before leaves, wait for it, mark
+        // its j == 0 lanes.
+#if X1_PROF
+        const unsigned long long t0 = clock64();
+#endif
+        ++cur;
+        hi = m - cur * R;
+        lo = max(1, hi - R + 1);
+        __syncwarp();
+        if (cur >= 1) issue(cur + 1, j - i - dmin);
+#if X1_PROF
+        const unsigned long long tw0 = clock64();
+#endif
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+        __syncwarp();
+#if X1_PROF
+        cyc_wait += clock64() - tw0;
+#endif
+        if (lo <= -dmin) {
+          const int cbx = (cur & 1) ? cb1 : cb0;
+          uint8_t* sb = st + (cur & 1) * slot_bytes;
+          for (int r = lane; r <= hi - lo; r += 32) {
+            const int x0 = -(hi - r) - dmin - 4 * cbx;
+            if (x0 >= 0 && x0 < XW) {
+              uint8_t* bp = sb + r * RS + (x0 >> 2);
+              const int sh = 2 * (x0 & 3);
+              *bp = (uint8_t)((*bp & ~(3u << sh)) | (1u << sh));
+            }
+          }
+          __syncwarp();
+        }
+#if X1_PROF
+        cyc_stage += clock64() - t0;
+        ++n_stage;
+#endif
+      }
+      const int cbx = (cur & 1) ? cb1 : cb0;
+      int x = j - i - dmin - 4 * cbx;
+      if ((unsigned)x < (unsigned)XW && s + 33 <= sl) {
+        // The walk in the window, an event at a time: lane t reads the
+        // pointer of row r + t at lane x, two ballots give the diagonal
+        // steps before the first other pointer (or the stage's end) and
+        // that pointer, and the lanes write those moves at once. An up
+        // or left step ends the event and moves x.
+#if X1_PROF
+        const int s_in = s;
+        const unsigned long long tw = clock64();
+#endif
+        const uint8_t* sb = st + (cur & 1) * slot_bytes;
+        const int nr = hi - lo + 1;
+        int r = hi - i;
+        int q = rb + s;
+        const int qend = rb + sl - 33;
+        for (;;) {
+          const unsigned wv =
+              lds32(sb + min(r + lane, nr - 1) * RS + ((x >> 2) & ~3));
+          const unsigned fl = __funnelshift_r(wv, wv, 2 * x);
+          // Rows at and past the stage's end stop the run (and past
+          // one row in the ablation build).
+          const int left_rows = (X1_TB_ABLATE & 1) ? 1 : nr - r;
+          const unsigned past = left_rows >= 32 ? 0u : ~0u << left_rows;
+          const unsigned blo = __ballot_sync(FULL, fl & 1u);
+          const unsigned bhi = __ballot_sync(FULL, fl & 2u);
+          const unsigned nz = blo | bhi | past;
+          const unsigned low = nz & (0u - nz);  // the first stop
+          const int k = __clz(__brev(nz));      // 32 where none
+          const bool take = (low & ~past) != 0u;
+          const unsigned f = ((blo & low) ? 1u : 0u) | ((bhi & low) ? 2u : 0u);
+          if (lane <= k) {
+            ring[(q + lane) & (TB_RING - 1)] =
+                (uint8_t)(lane < k ? 0u : f);
+          }
+          q += k + (int)take;
+#if X1_PROF
+          ++n_event;
+#endif
+          if (take && f == 3u) {  // a pointer 3 in the window itself
+            dead = true;
+            break;
+          }
+          const int up = take && f == 1u;
+          r += k + up;
+          x += up - (int)(take && f == 2u);
+          if (r >= nr || (unsigned)x >= (unsigned)XW || q > qend) break;
+        }
+        s = q - rb;
+        i = hi - r;
+        j = x + 4 * cbx + i + dmin;
+#if X1_PROF
+        n_fast += s - s_in;
+        cyc_walk += clock64() - tw;
+#endif
+        if (dead) break;
+        continue;
+      }
+    }
+    // Off the windows (or within 33 moves of the row's end): one step by
+    // the exact rule.
+    const unsigned p = tb_step(flat, i, j, Wa4, dmin);
+#if X1_PROF
+    n_slow += (i != 0 && j != 0);
+#endif
+    if (lane == 0) ring[(rb + s) & (TB_RING - 1)] = (uint8_t)p;
+    ++s;
+    if (p == 3u) break;
+    i -= (p <= 1u);
+    j -= (p == 0u || p == 2u);
+  }
+  // Out: the ring's moves up to the next 16-byte boundary (3s past the
+  // walk), then the rest of the row as 3s.
+#if X1_PROF
+  const unsigned long long t0 = clock64();
+#endif
+  // The copies still in flight land before the warp leaves.
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  const long long ge = g0 + s;
+  const long long ga = min(g0 + L, (ge + 15) & ~15LL);
+  if (lane < ga - ge) ring[(rb + s + lane) & (TB_RING - 1)] = 3;
+  __syncwarp();
+  tb_put(moves, ring, gf, ga, lane);
+  tb_put(moves, nullptr, ga, g0 + L, lane);
+#if X1_PROF
+  cyc_out += clock64() - t0;
+  if (lane == 0 && b < kProfPairs) {
+    unsigned smid;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
+    g_x1_tb_prof[b][0] = t_start;
+    g_x1_tb_prof[b][1] = x1_now();
+    g_x1_tb_prof[b][2] = s;
+    g_x1_tb_prof[b][3] = n_slow;
+    g_x1_tb_prof[b][4] = n_fast;
+    g_x1_tb_prof[b][5] = cyc_stage;
+    g_x1_tb_prof[b][6] = cyc_out;
+    g_x1_tb_prof[b][7] = smid;
+    g_x1_tb_prof[b][8] = cyc_walk;
+    g_x1_tb_prof[b][9] = n_stage;
+    g_x1_tb_prof[b][10] = cyc_wait;
+    g_x1_tb_prof[b][11] = n_event;
+  }
+#endif
+}
+
 // Dynamic shared memory of the "cta" route's CTA: two rows of Wa + 1
 // int32 and the warp totals (`ops/align_cuda.py::scan_smem` computes the
 // same).
@@ -681,12 +1037,47 @@ int dagcon_align_scan(const void* qb, const void* tb, const void* m,
   return (int)cudaGetLastError();
 }
 
+// route 0 "thread": warps == 4 (128 threads a CTA), smem 0, no order.
+// route 1 "warp": warps pairs a CTA (1..8), rows a stage (1..256),
+// window bytes (a power of two, 16..256), smem == warps
+// * tb_slot(rows, window), Wa a multiple of 64, packed and moves on
+// 16-byte boundaries, `order` the pair of
+// each of the ceil(B / warps) * warps warp slots (-1 for none). The plan
+// promises 0 <= m <= M and n >= 0. Refuses any other plan.
 int dagcon_align_traceback(const void* packed, const void* m, const void* n,
-                           void* moves, int B, int M, int Wa, int dmin,
-                           int L, void* stream) {
-  if (B <= 0 || L <= 0) return 0;
-  if (Wa <= 0 || Wa % 4 != 0) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
+                           void* moves, const void* order, int B, int M,
+                           int Wa, int dmin, int L, int route, int warps,
+                           int rows, int window, int smem, void* stream) {
+  if (Wa <= 0 || Wa % 4 != 0 || B < 0 || M < 0 || L < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (route == 1) {
+    if (warps < 1 || warps > MAX_WARPS_PER_CTA || rows < 1 ||
+        rows > TB_MAX_ROWS || window < 16 || window > TB_MAX_WINDOW ||
+        (window & (window - 1)) != 0 || Wa % 64 != 0 ||
+        smem != warps * tb_slot(rows, window) ||
+        smem > 232448 || order == nullptr ||
+        ((uintptr_t)packed | (uintptr_t)moves) % 16 != 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+  } else if (route != 0 || warps != 4 || smem != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (B == 0 || L == 0) return 0;
+  if (route == 1) {
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          align_traceback_warp_kernel,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    align_traceback_warp_kernel<<<(B + warps - 1) / warps, 32 * warps, smem,
+                                  (cudaStream_t)stream>>>(
+        (const uint8_t*)packed, (const int*)m, (const int*)n,
+        (uint8_t*)moves, (const int*)order, M, Wa, dmin, L, rows, window);
+    return (int)cudaGetLastError();
+  }
+  const int threads = 32 * warps;
   align_traceback_kernel<<<(B + threads - 1) / threads, threads, 0,
                            (cudaStream_t)stream>>>(
       (const uint8_t*)packed, (const int*)m, (const int*)n, (uint8_t*)moves,
@@ -701,6 +1092,14 @@ int dagcon_x1_prof_read(void* host, int n) {
   if (n < 0 || n > kProfPairs) return (int)cudaErrorInvalidValue;
   return (int)cudaMemcpyFromSymbol(host, g_x1_prof,
                                    sizeof(unsigned long long) * 10 * n);
+}
+
+// The last warp-route traceback's pair records of pairs 0..n-1 into
+// host [n][12] (unsigned 64-bit), n <= 4096.
+int dagcon_x1_tb_prof_read(void* host, int n) {
+  if (n < 0 || n > kProfPairs) return (int)cudaErrorInvalidValue;
+  return (int)cudaMemcpyFromSymbol(host, g_x1_tb_prof,
+                                   sizeof(unsigned long long) * kTbProf * n);
 }
 #endif
 

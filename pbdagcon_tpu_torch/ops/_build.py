@@ -131,8 +131,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         # warps, cpl_max, smem, stream)
         lib.dagcon_align_scan.argtypes = [vp] * 7 + [ci] * 9 + [vp]
         lib.dagcon_align_traceback.restype = ci
-        # (packed, m, n, moves, B, M, Wa, dmin, L, stream)
-        lib.dagcon_align_traceback.argtypes = [vp] * 4 + [ci] * 5 + [vp]
+        # (packed, m, n, moves, order, B, M, Wa, dmin, L, route, warps,
+        # rows, window, smem, stream)
+        lib.dagcon_align_traceback.argtypes = [vp] * 5 + [ci] * 10 + [vp]
     if name == "dp_blocked":
         for fn, argtypes in (
             # (win, cov, unsup, eex, M, B, V, W, L, stream)

@@ -14,11 +14,15 @@ written).
 The scan has two routes, chosen per batch by `scan_plan`: "warp" (a
 warp per pair over the pair's own lane span, `align_scan_warp_kernel`)
 where every pair's span fits 32 x WARP_MAX_CPL lanes, else "cta" (a CTA
-per pair over all Wa lanes, `align_scan_kernel`). The C entry checks the
-plan and refuses one it does not take.
+per pair over all Wa lanes, `align_scan_kernel`). The traceback has two,
+chosen by `traceback_plan`: "warp" (a warp per pair walking a staged
+window of its pointer rows, `align_traceback_warp_kernel`) for every
+batch, and "thread" (a thread per pair over device memory,
+`align_traceback_kernel`) only where a plan forces it. Each C entry
+checks its plan and refuses one it does not take.
 
 `launches` counts each kernel's launches by name ("align_scan",
-"align_traceback").
+"align_traceback"), and `traceback_routes` the traceback's by route.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ import torch
 from pbdagcon_tpu_torch.ops import _build, align_tpu
 
 launches = {"align_scan": 0, "align_traceback": 0}
+# The traceback's launches by route.
+traceback_routes = {"thread": 0, "warp": 0}
 
 # The scan's CTA holds two rows of Wa + 1 int32 and 8 warp totals in
 # shared memory: at most 227 KB on Hopper.
@@ -206,6 +212,65 @@ def align_scan_cuda(
     return packed
 
 
+TB_ROUTES = {"thread": 0, "warp": 1}
+TB_STAGES = 2
+
+
+def tb_slot(rows: int, window: int) -> int:
+    """Shared memory of one warp on the traceback's "warp" route (the
+    kernel file's `tb_slot`): two stage slots of `rows` rows, each row
+    the window and 16 bytes of padding, and the ring of moves."""
+    return TB_STAGES * rows * (window + 16) + align_tpu.TB_RING
+
+
+def traceback_plan(m, n, M: int, Wa: int, L: int, route: str | None = None,
+                   warps: int | None = None, rows: int | None = None,
+                   window: int | None = None) -> dict:
+    """The traceback's launch plan for a batch (m, n: numpy arrays or
+    tensors of the real and padded pairs). Raises ValueError on a pair
+    whose walk would read past the pointer tensor (m outside 0..M, n
+    below 0), as the kernels do not check. The route is "warp", which
+    needs Wa a multiple of 64 (the window's rows on 16-byte boundaries;
+    `prepare_batch` pads Wa to 128s) and raises on any other; only
+    `route="thread"` takes the first design, for the tests and
+    `tools/align_ablate.py` to time both. Keys: route, warps (pairs a
+    CTA on "warp"; 4, i.e. 128 threads of a pair each, on "thread"),
+    smem, and on "warp": rows (a stage's rows, `align_tpu.TB_ROWS`),
+    window (bytes a row, `TB_WINDOW`; a power of two, 16..256) and order
+    (int32, the pair of each warp slot, -1 for none: the pairs by m + n,
+    a bound of their paths, longest first, dealt to the CTAs as the
+    scan's are). `warps`, `rows` and `window` override the defaults for
+    the tests (small windows, B not a multiple of the warps) and the
+    ablation tool; no path of the program sets them."""
+    m, n = (np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x,
+                       dtype=np.int64) for x in (m, n))
+    if route not in (None, *TB_ROUTES):
+        raise ValueError(f"unknown traceback route {route!r}")
+    if Wa <= 0 or Wa % 4:
+        raise ValueError(f"Wa must be a positive multiple of 4, got {Wa}")
+    if L < 0:
+        raise ValueError(f"L must be >= 0, got {L}")
+    if len(m) and (m.min() < 0 or m.max() > M or n.min() < 0):
+        raise ValueError("a pair has m outside 0..M or n below 0")
+    if route == "thread":
+        return {"route": "thread", "warps": 4, "smem": 0}
+    if Wa % 64:
+        raise ValueError(f"the warp route needs Wa a multiple of 64, got {Wa}")
+    rows = align_tpu.TB_ROWS if rows is None else rows
+    window = align_tpu.TB_WINDOW if window is None else window
+    if not (1 <= rows <= 256 and window in (16, 32, 64, 128, 256)):
+        raise ValueError(f"no warp-route window of {window} bytes for "
+                         f"{rows} rows a stage")
+    slot = tb_slot(rows, window)
+    fit = max(1, min(MAX_WARPS_PER_CTA, -(-len(m) // SMS), MAX_SMEM // slot))
+    if warps is None:
+        warps = fit
+    elif not 1 <= warps <= min(MAX_WARPS_PER_CTA, MAX_SMEM // slot):
+        raise ValueError(f"{warps} warps a CTA do not fit")
+    return {"route": "warp", "warps": warps, "rows": rows, "window": window,
+            "smem": warps * slot, "order": _snake_order(m + n, warps)}
+
+
 def traceback_cuda(
     packed: torch.Tensor,  # [B, M, Wa // 4] uint8
     m: torch.Tensor,  # [B] int32
@@ -214,8 +279,12 @@ def traceback_cuda(
     Wa: int,
     dmin: int,
     L: int,
+    plan: dict | None = None,
 ) -> torch.Tensor:
-    """Move streams [B, L] uint8 (0 diag, 1 up, 2 left, 3 done)."""
+    """Move streams [B, L] uint8 (0 diag, 1 up, 2 left, 3 done), on the
+    route of `plan` (`traceback_plan`; made here from m and n, which
+    costs a copy to the host, when None). The plan's order may be a
+    numpy array or a tensor already on the card."""
     device = packed.device
     if device.type != "cuda":
         raise ValueError(f"traceback_cuda needs CUDA tensors, got {device}")
@@ -229,16 +298,27 @@ def traceback_cuda(
         _check(t, name, torch.int32, (B,), device)
     if L < 0:
         raise ValueError(f"L must be >= 0, got {L}")
+    if plan is None:
+        plan = traceback_plan(m, n, M, Wa, L)
+    if plan.get("route") not in TB_ROUTES:
+        raise ValueError(f"not a traceback plan: {plan}")
+    order = None
+    if plan["route"] == "warp":
+        if len(plan["order"]) != -(-B // plan["warps"]) * plan["warps"]:
+            raise ValueError(f"the plan's order is not of B = {B} pairs")
+        order = torch.as_tensor(plan["order"], device=device)
     lib = _build.load("align_scan")
     moves = torch.empty((B, L), dtype=torch.uint8, device=device)
-    if B == 0 or L == 0:
-        return moves
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.dagcon_align_traceback(
             packed.data_ptr(), m.data_ptr(), n.data_ptr(), moves.data_ptr(),
-            B, M, Wa, dmin, L, stream,
+            None if order is None else order.data_ptr(), B, M, Wa, dmin, L,
+            TB_ROUTES[plan["route"]], plan["warps"], plan.get("rows", 0),
+            plan.get("window", 0), plan["smem"], stream,
         )
     _build.check(lib, rc, "align_traceback launch")
-    launches["align_traceback"] += 1
+    if B and L:
+        launches["align_traceback"] += 1
+        traceback_routes[plan["route"]] += 1
     return moves

@@ -324,6 +324,197 @@ def traceback_plain(
     return moves
 
 
+# The warp route of kernel X1's traceback (`csrc/align_scan.cu`,
+# `align_traceback_warp_kernel`): a warp per pair walks its pointers in
+# stages of TB_ROWS rows over TB_WINDOW bytes a row, staged in shared
+# memory two at a time, and buffers its moves in a ring of TB_RING bytes.
+TB_ROWS = 128
+TB_WINDOW = 64
+TB_RING = 512
+
+
+def traceback_window_model(
+    packed: torch.Tensor,  # [B, M, Wa // 4] uint8
+    m: torch.Tensor,  # [B] int32
+    n: torch.Tensor,  # [B] int32
+    M: int,
+    Wa: int,
+    dmin: int,
+    L: int,
+    rows: int = TB_ROWS,
+    window: int = TB_WINDOW,
+) -> tuple[torch.Tensor, dict]:
+    """X1's warp-route traceback as a CPU model, event for event: the
+    stages of `rows` rows from row m down, each a window of `window`
+    bytes (halved while wider than a row's Wa // 4) from a 16-byte
+    boundary placed when the
+    walk enters the stage before it (from `window` lanes left of the
+    lane there: the walk drifts right, one lane an up step), copied
+    out of `packed` with pointer 1 written on each row's j == 0 lane.
+    In a window the walk goes as the kernel's warp takes it: an event
+    reads 32 rows at once (the rows past the stage's end clamped to its
+    last and masked), takes the diagonal run up to the first other
+    pointer or the stage's end, then that pointer's step; events stop
+    at the window's edge, the stage's end, or once within 33 moves of
+    the ring's room or of L (so a run may go up to 32 steps past that
+    mark). Any other step reads `packed` by the reference's rules (row
+    0, j == 0, the byte index clamped). The moves pass through a ring of TB_RING
+    bytes, whose whole 16-byte blocks go out once fewer than 33 places
+    (an event's) are free, and out only as the kernel writes them: whole
+    16-byte blocks of the flat [B * L] output, the partial blocks at a
+    row's ends byte by byte; the model checks that no store crosses its
+    row and that each byte is written once.
+    Array-equal to `traceback_plain` on any packed tensor. Returns the
+    moves [B, L] uint8 and per-pair counts (numpy int64): "steps"
+    walked, "fast" (steps in a window), "slow" (pointer reads from
+    `packed`) and "events": the counts of the kernel's -D X1_PROF=1
+    build."""
+    B = packed.shape[0]
+    Wa4 = Wa // 4
+    if Wa % 64 or window not in (16, 32, 64, 128, 256):
+        raise ValueError(f"no warp-route window for Wa={Wa}, rows={rows}, "
+                         f"window={window}")
+    WBe = window
+    while WBe > Wa4:
+        WBe //= 2
+    XW = 4 * WBe
+    margin = window
+    pk = packed.reshape(B, M * Wa4).numpy()
+    out = np.zeros(B * L, dtype=np.uint8)
+    wrote = np.zeros(B * L, dtype=np.int8)
+    counts = {k: np.zeros(B, dtype=np.int64)
+              for k in ("steps", "fast", "slow", "events")}
+    lanes32 = np.arange(32)
+    le4 = np.array([1, 1 << 8, 1 << 16, 1 << 24], dtype=np.uint64)
+    for b in range(B):
+        flat = pk[b]
+        g0 = b * L
+        ring = np.zeros(TB_RING, dtype=np.uint8)
+
+        def put(g, gt, src):
+            """Bytes [g, gt) out as the kernel's tb_put stores them."""
+            if gt <= g:
+                return
+            ha = min(gt, (g + 15) & ~15)
+            ta = max(ha, gt & ~15)
+            spans = [(g, ha), *((x, x + 16) for x in range(ha, ta, 16)),
+                     (ta, gt)]
+            for lo, hi in spans:
+                if hi <= lo:
+                    continue
+                assert g0 <= lo and hi <= g0 + L, "a store crosses its row"
+                assert hi - lo == 16 or lo // 16 == (hi - 1) // 16
+                idx = np.arange(lo, hi)
+                out[lo:hi] = ring[idx % TB_RING] if src else 3
+                wrote[lo:hi] += 1
+
+        slots = [None, None]  # (top row, rows, first byte, the copy)
+
+        def issue(c, lam):
+            hi = int(m[b]) - c * rows
+            lo = max(1, hi - rows + 1)
+            cb = min(max(((lam - margin) >> 2) & ~15, 0), Wa4 - WBe)
+            copy = np.zeros((rows, window), dtype=np.uint8)
+            for r in range(max(0, hi - lo + 1)):
+                copy[r, :WBe] = flat[(hi - r - 1) * Wa4 + cb:][:WBe]
+            slots[c & 1] = (hi, max(0, hi - lo + 1), cb, copy)
+
+        i, j, s, gf = int(m[b]), int(n[b]), 0, g0
+        if i >= 1:
+            issue(0, j - i - dmin)
+            issue(1, j - i - dmin)
+        cur = -1
+        while True:
+            sl = min(L, gf - g0 + TB_RING - 16)
+            if s >= L:
+                break
+            if s + 33 > gf - g0 + TB_RING - 16 and (g0 + s) & ~15 > gf:
+                gt = (g0 + s) & ~15
+                put(gf, gt, True)
+                gf = gt
+                continue
+            if i == 0 and j == 0:
+                break
+            if i >= 1:
+                c = (int(m[b]) - i) // rows
+                if c != cur:
+                    cur = c
+                    if c >= 1:
+                        issue(c + 1, j - i - dmin)
+                    hi, nr, cb, copy = slots[c & 1]
+                    for r in range(nr):
+                        x0 = -(hi - r) - dmin - 4 * cb
+                        if 0 <= x0 < XW:
+                            sh = 2 * (x0 & 3)
+                            copy[r, x0 >> 2] = (int(copy[r, x0 >> 2])
+                                                & (255 ^ 3 << sh)) | 1 << sh
+                hi, nr, cb, copy = slots[c & 1]
+                x = j - i - dmin - 4 * cb
+                if 0 <= x < XW and s + 33 <= sl:
+                    r, q = hi - i, s
+                    dead = False
+                    while True:
+                        # An event: lane t reads row min(r + t, nr - 1)
+                        # as a 4-byte word from a 4-byte boundary,
+                        # rotated right by 2x bits; rows from the
+                        # stage's end on stop the run untaken. The first
+                        # stop is at k (32 where none); lanes 0..k - 1
+                        # write diagonal moves, lane k its pointer.
+                        rws = np.minimum(r + lanes32, nr - 1)
+                        o = (x >> 2) & ~3
+                        wv = copy[rws, o:o + 4].astype(np.uint64) @ le4
+                        rot = (2 * x) & 31
+                        wv = (wv >> rot) | (wv << (32 - rot) & 0xFFFFFFFF)
+                        fl = (wv & 3).astype(np.int64)
+                        past = lanes32 >= nr - r
+                        stop = (fl != 0) | past
+                        k = int(np.argmax(stop)) if stop.any() else 32
+                        take = k < 32 and not past[k]
+                        ring[(g0 + q + np.arange(k)) % TB_RING] = 0
+                        if k < 32:
+                            ring[(g0 + q + k) % TB_RING] = fl[k]
+                        f = int(fl[k]) if take else 0
+                        q += k + take
+                        counts["events"][b] += 1
+                        if f == 3:
+                            dead = True
+                            break
+                        r += k + (f == 1)
+                        x += (f == 1) - (f == 2)
+                        if r >= nr or not 0 <= x < XW or q > sl - 33:
+                            break
+                    counts["fast"][b] += q - s
+                    s = q
+                    i = hi - r
+                    j = x + 4 * cb + i + dmin
+                    if dead:
+                        break
+                    continue
+            if i == 0:
+                p = 2
+            elif j == 0:
+                p = 1
+            else:
+                lane = j - i - dmin
+                byte = flat[(i - 1) * Wa4 + min(max(lane >> 2, 0), Wa4 - 1)]
+                p = (int(byte) >> (2 * (lane & 3))) & 3
+                counts["slow"][b] += 1
+            ring[(g0 + s) % TB_RING] = p
+            s += 1
+            if p == 3:
+                break
+            i -= p <= 1
+            j -= p in (0, 2)
+        counts["steps"][b] = s
+        ge = g0 + s
+        ga = min(g0 + L, (ge + 15) & ~15)
+        ring[np.arange(ge, ga) % TB_RING] = 3
+        put(gf, ga, True)
+        put(ga, g0 + L, False)
+    assert (wrote == 1).all(), "a move byte written other than once"
+    return torch.from_numpy(out.reshape(B, L)), counts
+
+
 def align_scan(qb, tb_pad, m, n, bw, M: int, Wa: int, dmin: int,
                plan: dict | None = None):
     """Kernel X1's scan on a CUDA tensor (on the route of `plan`,
@@ -336,14 +527,15 @@ def align_scan(qb, tb_pad, m, n, bw, M: int, Wa: int, dmin: int,
                                       plan)
 
 
-def traceback(packed, m, n, M: int, Wa: int, dmin: int, L: int):
-    """Kernel X1's traceback on a CUDA tensor, its plain version on the
-    CPU."""
+def traceback(packed, m, n, M: int, Wa: int, dmin: int, L: int,
+              plan: dict | None = None):
+    """Kernel X1's traceback on a CUDA tensor (on the route of `plan`,
+    `align_cuda.traceback_plan`), its plain version on the CPU."""
     if packed.device.type == "cpu":
         return traceback_plain(packed, m, n, M, Wa, dmin, L)
     from pbdagcon_tpu_torch.ops import align_cuda
 
-    return align_cuda.traceback_cuda(packed, m, n, M, Wa, dmin, L)
+    return align_cuda.traceback_cuda(packed, m, n, M, Wa, dmin, L, plan)
 
 
 def prepare_batch(pairs: list[tuple[str, str]]) -> dict:
@@ -392,13 +584,14 @@ def device_moves(p: dict, device) -> np.ndarray:
     qb, tb, m, n, bw = (
         torch.from_numpy(p[k]).to(dev) for k in ("qb", "tb_pad", "m", "n", "bw")
     )
-    plan = None
+    plan = tb_plan = None
     if dev.type == "cuda":
         from pbdagcon_tpu_torch.ops import align_cuda
 
         plan = align_cuda.scan_plan(p["m"], p["n"], p["bw"], M, Wa, dmin)
+        tb_plan = align_cuda.traceback_plan(p["m"], p["n"], M, Wa, L)
     packed = align_scan(qb, tb, m, n, bw, M, Wa, dmin, plan)
-    return traceback(packed, m, n, M, Wa, dmin, L).cpu().numpy()
+    return traceback(packed, m, n, M, Wa, dmin, L, tb_plan).cpu().numpy()
 
 
 def replay_moves(

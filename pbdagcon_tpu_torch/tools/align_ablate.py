@@ -1,19 +1,28 @@
-"""Kernel X1's scan (`csrc/align_scan.cu`) on the bench batch: the "warp"
-route against the "cta" route, in turns, beside builds of the warp
-route with parts switched off (`X1_ABLATE` bits; their pointers are
-wrong, only their times count).
+"""Kernel X1 (`csrc/align_scan.cu`) on the bench batch, its routes in
+turns and beside builds with parts switched off or clocked.
 
     python -m pbdagcon_tpu_torch.tools.align_ablate [--reps N]
+        [--parts scan,traceback]
 
 The bench batch is the first 1024 raw records of the bench workload
 (512 targets x 1000 bp x 30x, seed 1234, `NoiseProfile()`), prepared by
-`ops/align_tpu.py::prepare_batch` (B=1024, M=1280, Wa=768), as
-`chip_smoke.py`'s phase 7 makes it. Both routes are held array-equal to
-each other and to the plain version first (exit 1 if not). Each timing
-line gives the device ms per launch (an eager loop of launches between
-CUDA events) in the order cta, warp, warp, cta, and the bound: the
-padded inputs read once and the pointers written once at 3.35 TB/s.
-Exit 2 without a card.
+`ops/align_tpu.py::prepare_batch` (B=1024, M=1280, Wa=768, L=2304), as
+`chip_smoke.py`'s phase 7 makes it.
+
+The scan: the "warp" route against the "cta" route, beside builds of
+the warp route with parts switched off (`X1_ABLATE` bits; their pointers
+are wrong, only their times count) and its pair clocks (-D X1_PROF=1).
+The traceback: the "warp" route against the "thread" route, on the
+bench batch and on its first 32 pairs (dazcon's rung), beside forced
+stage plans (rows, window bytes), the build whose look-ahead reads one
+row, a step an event (-D X1_TB_ABLATE=1, exact), and its pair records
+(-D X1_PROF=1): pointer reads outside the staged windows (0 expected on
+the bench batch), and the longest walk's steps, ns and cycles a step,
+stage waits and stores. Every route and build is held array-equal to
+the plain version first (exit 1 if not). Each timing line gives the
+device ms per launch (an eager loop of launches between CUDA events) in
+the order old, new, new, old, and the bound: the bytes moved once at
+3.35 TB/s. Exit 2 without a card.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ BUILDS = {
     "X1_ABLATE=3": "no stores at all (compute only)",
 }
 PROF = "X1_PROF=1"
+TB_ABLATE = "X1_TB_ABLATE=1"
 
 
 def _card() -> str:
@@ -82,24 +92,26 @@ def _time_ms(fn, reps: int) -> float:
 
 
 def main(argv=None) -> int:
-    import numpy as np
     import torch
 
-    from pbdagcon_tpu_torch.ops import _build, align_cuda, align_tpu
+    from pbdagcon_tpu_torch.ops import _build, align_tpu
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--parts", default="scan,traceback")
     a = ap.parse_args(argv)
+    parts = set(a.parts.split(","))
     if not torch.cuda.is_available():
         print("align_ablate: no CUDA card", file=sys.stderr)
         return 2
     card = _card()
     t = time.time()
-    with ThreadPoolExecutor(len(BUILDS) + 1) as ex:
-        list(ex.map(lambda d: _build.build("align_scan", d),
-                    [(), (PROF,), *((k,) for k in BUILDS)]))
-    print(f"built align_scan and {len(BUILDS)} ablation builds in "
-          f"{time.time() - t:.1f} s", flush=True)
+    builds = [(), (PROF,), (TB_ABLATE,),
+              *((k,) for k in BUILDS if "scan" in parts)]
+    with ThreadPoolExecutor(len(builds)) as ex:
+        list(ex.map(lambda d: _build.build("align_scan", d), builds))
+    print(f"built align_scan and {len(builds) - 1} profiling and ablation "
+          f"builds in {time.time() - t:.1f} s", flush=True)
     for key, log in _build.build_logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "error")):
@@ -107,9 +119,25 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     p = align_tpu.prepare_batch(bench_pairs())
-    M, Wa, dmin = p["M"], p["Wa"], p["dmin"]
     args = [torch.from_numpy(p[k]).to(dev)
             for k in ("qb", "tb_pad", "m", "n", "bw")]
+    if "scan" in parts:
+        rc = _scan(a, p, args, card)
+        if rc:
+            return rc
+    if "traceback" in parts:
+        return _traceback(a, p, args, card)
+    return 0
+
+
+def _scan(a, p, args, card) -> int:
+    import numpy as np
+    import torch
+
+    from pbdagcon_tpu_torch.ops import _build, align_cuda, align_tpu
+
+    dev = args[0].device
+    M, Wa, dmin = p["M"], p["Wa"], p["dmin"]
     B = args[0].shape[0]
     plans = {r: align_cuda.scan_plan(p["m"], p["n"], p["bw"], M, Wa, dmin,
                                      route=r) for r in ("cta", "warp")}
@@ -191,7 +219,7 @@ def main(argv=None) -> int:
     prun = launcher(plib, plans["warp"])
     prun()
     torch.cuda.synchronize()
-    prof = np.zeros((B, 10), dtype=np.uint64)
+    prof = np.zeros((B, 12), dtype=np.uint64)
     rc = plib.dagcon_x1_prof_read(prof.ctypes.data, B)
     if rc:
         raise RuntimeError(f"dagcon_x1_prof_read failed ({rc})")
@@ -220,6 +248,123 @@ def main(argv=None) -> int:
     print(f"warp route CPL classes (pairs): {plans['warp']['cpl_counts']}; "
           f"rows computed {int(np.minimum(p['m'] + 1, M).sum())} of "
           f"{B * M}")
+    return 0
+
+
+def _traceback(a, p, args, card) -> int:
+    import numpy as np
+    import torch
+
+    from pbdagcon_tpu_torch.ops import _build, align_cuda, align_tpu
+
+    dev = args[0].device
+    M, Wa, dmin, L = p["M"], p["Wa"], p["dmin"], p["L"]
+    packed = align_cuda.align_scan_cuda(*args, M, Wa, dmin)
+    m, n = args[2], args[3]
+    want = align_tpu.traceback_plain(packed, m, n, M, Wa, dmin, L)
+    torch.cuda.synchronize()
+    mv = want.cpu().numpy()
+    steps = (mv != 3).sum(axis=1)
+    longest = int(steps.max())
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def plan_of(B, **kw):
+        pl = align_cuda.traceback_plan(p["m"][:B], p["n"][:B], M, Wa, L, **kw)
+        if "order" in pl:
+            pl["order"] = torch.from_numpy(pl["order"]).to(dev)
+        return pl
+
+    def launcher(lib, B, plan):
+        out = torch.empty((B, L), dtype=torch.uint8, device=dev)
+        pk, mm, nn = (x[:B].contiguous() for x in (packed, m, n))
+        order = plan.get("order")
+
+        def run():
+            rc = lib.dagcon_align_traceback(
+                pk.data_ptr(), mm.data_ptr(), nn.data_ptr(), out.data_ptr(),
+                None if order is None else order.data_ptr(), B, M, Wa, dmin,
+                L, align_cuda.TB_ROUTES[plan["route"]], plan["warps"],
+                plan.get("rows", 0), plan.get("window", 0), plan["smem"],
+                stream)
+            if rc:
+                raise RuntimeError(f"align_traceback launch failed ({rc})")
+            return out
+        return run
+
+    def held(run, B, what) -> bool:
+        got = run()
+        torch.cuda.synchronize()
+        ok = torch.equal(got, want[:B])
+        if not ok:
+            print(f"  traceback {what}: MISMATCH against the plain version")
+        return ok
+
+    whole = _build.load("align_scan")
+    B = len(p["m"])
+    nbytes = int(steps.sum()) + 8 * B + B * L
+    print(f"traceback bench batch: B={B} L={L}, path steps {int(steps.sum())}"
+          f", longest {longest}; plan {plan_of(B)['route']}, "
+          f"{ {k: v for k, v in plan_of(B).items() if k != 'order'} } "
+          f"[{card}]", flush=True)
+    for nb in (B, 32):
+        thread = launcher(whole, nb, plan_of(nb, route="thread"))
+        warp = launcher(whole, nb, plan_of(nb))
+        if not (held(thread, nb, "thread") and held(warp, nb, "warp")):
+            return 1
+        turns = [_time_ms(f, a.reps) for f in (thread, warp, warp, thread)]
+        lg = int(steps[:nb].max())
+        print(f"align_traceback B={nb}, ms a launch (thread, warp, warp, "
+              f"thread): {turns}; warp {(turns[1] + turns[2]) / 2} against "
+              f"thread {(turns[0] + turns[3]) / 2}; longest path {lg} steps, "
+              f"{(turns[1] + turns[2]) / 2 * 1e6 / lg:.1f} ns a step [{card}]",
+              flush=True)
+    print(f"  bound {nbytes / HBM_BYTES_PER_S * 1e3} ms (bytes {nbytes}: the "
+          f"path steps' pointer bytes, m and n, the moves)")
+    warp = launcher(whole, B, plan_of(B))
+    for kw in ({"rows": 64}, {"rows": 256}, {"window": 32},
+               {"window": 128}, {"warps": 4}):
+        run = launcher(whole, B, plan_of(B, **kw))
+        if not held(run, B, str(kw)):
+            return 1
+        wa, wb = _time_ms(warp, a.reps), _time_ms(run, a.reps)
+        print(f"  plan {kw}: {wb} ms against the plan's {wa} [{card}]",
+              flush=True)
+    ab = launcher(_build.load("align_scan", (TB_ABLATE,)), B, plan_of(B))
+    if not held(ab, B, TB_ABLATE):
+        return 1
+    wa, wb = _time_ms(warp, a.reps), _time_ms(ab, a.reps)
+    print(f"  {TB_ABLATE} (a look-ahead of one row: a step an event): {wb} ms "
+          f"against {wa} [{card}]", flush=True)
+    plib = _build.load("align_scan", (PROF,))
+    plib.dagcon_x1_tb_prof_read.restype = ctypes.c_int
+    plib.dagcon_x1_tb_prof_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    prun = launcher(plib, B, plan_of(B))
+    if not held(prun, B, PROF):
+        return 1
+    prof = np.zeros((B, 12), dtype=np.uint64)
+    rc = plib.dagcon_x1_tb_prof_read(prof.ctypes.data, B)
+    if rc:
+        raise RuntimeError(f"dagcon_x1_tb_prof_read failed ({rc})")
+    pr = prof.astype(np.int64)
+    t0 = pr[:, 0].min()
+    end = (pr[:, 1] - t0) / 1e3
+    slow = int(pr[:, 3].sum())
+    print(f"traceback pair records: pointer reads outside the windows "
+          f"{slow} (steps in windows {int(pr[:, 4].sum())} of "
+          f"{int(pr[:, 2].sum())}); last end {end.max():.1f} us, median "
+          f"{np.median(end):.1f} us, starts within "
+          f"{(pr[:, 0].max() - t0) / 1e3:.1f} us; SMs "
+          f"{len(set(pr[:, 7].tolist()))} [{card}]")
+    for b in np.argsort(-end)[:4]:
+        st, ev = max(1, int(pr[b, 9])), max(1, int(pr[b, 11]))
+        print(f"  pair {b}: {pr[b, 2]} steps ({pr[b, 4]} in windows, "
+              f"{pr[b, 3]} outside) in {(pr[b, 1] - pr[b, 0]) / 1e3:.1f} us, "
+              f"{(pr[b, 1] - pr[b, 0]) / max(1, pr[b, 2]):.1f} ns a step; "
+              f"cycles walking {pr[b, 8]} in {ev} events ({pr[b, 8] / ev:.1f}"
+              f" an event, {pr[b, 8] / max(1, pr[b, 4]):.1f} a step), "
+              f"entering {st} stages {pr[b, 5]} ({pr[b, 5] / st:.0f} a "
+              f"stage, {pr[b, 10] / st:.0f} of it waiting), writing moves "
+              f"{pr[b, 6]}")
     return 0
 
 

@@ -663,11 +663,12 @@ def _align_pairs(case: str):
     return pairs
 
 
+@pytest.mark.parametrize("tb_route", ["warp", "thread"])
 @pytest.mark.parametrize("case,route", [
     ("random", "warp"), ("random", "cta"), ("skew", "cta"),
     ("identical", "warp"), ("identical", "cta"),
 ])
-def test_align_kernels_match_plain_versions(card, case, route):
+def test_align_kernels_match_plain_versions(card, case, route, tb_route):
     from pbdagcon_tpu_torch.aligner import align_pair
     from pbdagcon_tpu_torch.ops import align_cuda, align_tpu
 
@@ -683,10 +684,18 @@ def test_align_kernels_match_plain_versions(card, case, route):
                                 route=route)
     assert align_cuda.scan_plan(args[2], args[3], args[4], M, Wa, dmin)[
         "route"] == ("cta" if case == "skew" else "warp")
+    tb_plan = align_cuda.traceback_plan(args[2], args[3], M, Wa, L,
+                                        route=tb_route)
+    assert align_cuda.traceback_plan(args[2], args[3], M, Wa, L)[
+        "route"] == "warp"
     before = dict(align_cuda.launches)
+    routes = dict(align_cuda.traceback_routes)
     packed = align_tpu.align_scan(*args, M, Wa, dmin, plan)
-    moves = align_tpu.traceback(packed, args[2], args[3], M, Wa, dmin, L)
+    moves = align_tpu.traceback(packed, args[2], args[3], M, Wa, dmin, L,
+                                tb_plan)
     assert align_cuda.launches == {k: v + 1 for k, v in before.items()}
+    routes[tb_route] += 1
+    assert align_cuda.traceback_routes == routes
     want = align_tpu.align_scan_plain(*args, M, Wa, dmin)
     want_mv = align_tpu.traceback_plain(want, args[2], args[3], M, Wa, dmin, L)
     torch.cuda.synchronize()
@@ -758,6 +767,106 @@ def test_align_scan_refuses_a_bad_plan(card):
         align_cuda.scan_plan(skew["m"], skew["n"], skew["bw"], skew["M"],
                              skew["Wa"], skew["dmin"], route="warp")
     assert align_cuda.launches == before
+
+
+def _random_pointers(seed, B, M, Wa, probs, n_hi):
+    """Random packed pointers (2-bit fields drawn from `probs` over diag,
+    up, left, 3) and m in 0..M, n in 0..n_hi."""
+    rng = np.random.default_rng(seed)
+    f = rng.choice(4, size=(B, M, Wa // 4, 4), p=probs).astype(np.uint8)
+    packed = (f << np.array([0, 2, 4, 6], np.uint8)).sum(axis=3,
+                                                         dtype=np.uint8)
+    m = rng.integers(0, M + 1, B).astype(np.int32)
+    n = rng.integers(0, n_hi + 1, B).astype(np.int32)
+    m[0], n[0] = M, n_hi
+    return [torch.from_numpy(x) for x in (packed, m, n)]
+
+
+@pytest.mark.parametrize("B", [1, 33, 200])
+@pytest.mark.parametrize("probs", [(0.2, 0.1, 0.7, 0.0),
+                                   (0.1, 0.7, 0.2, 0.0),
+                                   (0.25, 0.25, 0.25, 0.25)])
+def test_traceback_routes_on_random_pointers(card, B, probs):
+    """Walks that leave every window (long left runs, climbing lanes,
+    pointer 3s), lanes below 0 and past Wa - 1, on both routes and on a
+    tiny forced window, each array-equal to the plain version and to
+    the CPU model."""
+    from pbdagcon_tpu_torch.ops import align_cuda, align_tpu
+
+    M, Wa, dmin, L = 300, 256, -64, 700
+    pk, m, n = _random_pointers(B, B, M, Wa, probs, 500)
+    want = align_tpu.traceback_plain(pk, m, n, M, Wa, dmin, L)
+    model, _ = align_tpu.traceback_window_model(pk, m, n, M, Wa, dmin, L,
+                                                rows=8, window=32)
+    assert torch.equal(model, want)
+    args = [x.to(card) for x in (pk, m, n)]
+    for kw in ({}, {"route": "thread"}, {"rows": 8, "window": 32},
+               {"rows": 200, "window": 16}, {"warps": 3}):
+        plan = align_cuda.traceback_plan(m, n, M, Wa, L, **kw)
+        got = align_cuda.traceback_cuda(*args, M, Wa, dmin, L, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), kw
+
+
+@pytest.mark.parametrize("L", [1, 15, 17, 37, 300])
+def test_traceback_warp_route_cuts_long_paths(card, L):
+    """L shorter than the paths and not a multiple of 16 (rows start off
+    16-byte boundaries); B = 1 and B = 33."""
+    from pbdagcon_tpu_torch.ops import align_cuda, align_tpu
+
+    for B in (1, 33):
+        pairs = _align_pairs("random")[:B]
+        p = align_tpu.prepare_batch(pairs)
+        args = [torch.from_numpy(np.ascontiguousarray(p[k][:B])).to(card)
+                for k in ("qb", "tb_pad", "m", "n", "bw")]
+        M, Wa, dmin = p["M"], p["Wa"], p["dmin"]
+        packed = align_tpu.align_scan_plain(*args, M, Wa, dmin)
+        plan = align_cuda.traceback_plan(args[2], args[3], M, Wa, L)
+        assert plan["route"] == "warp"
+        got = align_cuda.traceback_cuda(packed, args[2], args[3], M, Wa, dmin,
+                                        L, plan)
+        want = align_tpu.traceback_plain(packed, args[2], args[3], M, Wa,
+                                         dmin, L)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_traceback_refuses_a_bad_plan(card):
+    from pbdagcon_tpu_torch.ops import align_cuda, align_tpu
+
+    p = align_tpu.prepare_batch(_align_pairs("identical"))
+    m, n = (torch.from_numpy(p[k]).to(card) for k in ("m", "n"))
+    M, Wa, dmin, L = p["M"], p["Wa"], p["dmin"], p["L"]
+    packed = torch.zeros((len(p["m"]), M, Wa // 4), dtype=torch.uint8,
+                         device=card)
+    plan = align_cuda.traceback_plan(p["m"], p["n"], M, Wa, L)
+    before = dict(align_cuda.launches)
+    routes = dict(align_cuda.traceback_routes)
+    B = len(p["m"])
+    order9 = np.full(-(-B // 9) * 9, -1, dtype=np.int32)
+    order9[:B] = np.arange(B)
+    slot = align_cuda.tb_slot(plan["rows"], plan["window"])
+    for bad in ({**plan, "warps": 9, "smem": 9 * slot, "order": order9},
+                {**plan, "smem": plan["smem"] - 16},
+                {**plan, "rows": 0, "smem": plan["warps"] * (
+                    align_cuda.tb_slot(0, plan["window"]))},
+                {**plan, "window": 48},
+                {**plan, "rows": 300, "smem": plan["warps"] * (
+                    align_cuda.tb_slot(300, plan["window"]))},
+                {"route": "thread", "warps": 8, "smem": 0},
+                {"route": "thread", "warps": 4, "smem": 16}):
+        with pytest.raises(RuntimeError, match="align_traceback launch"):
+            align_cuda.traceback_cuda(packed, m, n, M, Wa, dmin, L, bad)
+    with pytest.raises(ValueError):
+        align_cuda.traceback_cuda(packed, m, n, M, Wa, dmin, L,
+                                  {"route": "cta", "smem": 0})
+    with pytest.raises(ValueError, match="order"):  # a plan of another B
+        align_cuda.traceback_cuda(packed, m, n, M, Wa, dmin, L,
+                                  {**plan, "order": plan["order"][:-8]})
+    with pytest.raises(ValueError, match="0..M"):  # m past the rows
+        align_cuda.traceback_cuda(packed, m + M, n, M, Wa, dmin, L)
+    assert align_cuda.launches == before
+    assert align_cuda.traceback_routes == routes
 
 
 def test_align_wrappers_reject_what_they_do_not_take(card):
