@@ -88,23 +88,29 @@ Phases, in order; any failure exits non-zero before the last line:
    and the device worker's first-use warmup printed.
 11. Kernel X2 (`csrc/dp_blocked.cu`: the blocked max-plus solve's
    compose, propagate and fill) against its plain versions: each
-   kernel's output integer-equal, the Kleene-iterated scores bitwise and
-   the flags equal, the unflagged rows bitwise equal to B1's, on random
-   batches (W 16-128, long edges), the bench batch and one target of
-   the oversize workload (64 targets x 8000 bp x 30x, seed 1234, raw
-   'pre' with -a: every target past the top V bucket); the kernels timed
-   with CUDA events in turns with their plain phases, beside B1 on the
-   bench batch. Then the oversize cell through `run_stream` on "cuda"
-   (the one-card colshard) in turns with "host", FASTA byte-equal to the
-   single-thread native engine, colshard targets and X2 launches > 0,
-   b/s and a traced run; then `backend="blocked"` on the bench cell in
+   kernel's output integer-equal (the compose and the propagate on their
+   planned routes, "column" and "warp", and on the forced "cta" routes),
+   the Kleene-iterated scores bitwise and the flags equal, the unflagged
+   rows bitwise equal to B1's, on random batches (W 16-128, long edges),
+   the bench batch and one target of the oversize workload (64 targets
+   x 8000 bp x 30x, seed 1234, raw 'pre' with -a: every target past the
+   top V bucket); the kernels timed with CUDA events in turns with their
+   plain phases, and the compose and the propagate in turns with their
+   "cta" routes, beside B1 on the bench batch. Then the oversize cell
+   through `run_stream` on "cuda" (the one-card colshard) in turns with
+   "host", FASTA byte-equal to the single-thread native engine, colshard
+   targets and X2 launches > 0, every compose and propagate at W 16 and
+   32 on the new routes (by `route_widths`), b/s and a traced run; then
+   `backend="blocked"` on the bench cell in
    turns with "cuda", byte-equal, with its flagged rows and launches.
 
 Each phase's own seconds are printed on a line of its own ("phase N:
 S s") as it ends. Then a JSON line of kernels (each with its launches
 on the main paths, max_abs_err, ms, plain_ms, bound_ms, bound_by and
 library_ms; hist and scatter also with their masked window and their
-per-call readings, align_scan with its route and the "cta" route's
+per-call readings; blocked_compose and blocked_propagate with their
+planned route, the "cta" route's ms and their launches by route and W;
+align_scan with its route and the "cta" route's
 ms, align_traceback with its route, the "thread" route's ms, the chain
 figure (the longest path's steps, ns a step) and the B = 32 call), and
 the last line:
@@ -1482,8 +1488,16 @@ def main() -> int:
         s2 = x2c.fill_cuda(args[0], args[2], args[3], e_ex, x_in, L)
         M_p = dpb._compose(a)
         x_p = dpb._propagate(M_p)
+        # The first design's routes, forced, on the same inputs.
+        cta_c = x2c.compose_plan(B, V // L, W, L, route="cta")
+        cta_p = x2c.propagate_plan(B, V // L, W, route="cta")
+        M_cta = x2c.compose_cuda(args[0], args[2], args[3], e_ex, L, plan=cta_c)
+        x_cta = x2c.propagate_cuda(M_p, plan=cta_p)
+        routes = (x2c.compose_plan(B, V // L, W, L)["route"],
+                  x2c.propagate_plan(B, V // L, W)["route"])
         ok = (torch.equal(M, M_p) and torch.equal(x_in, x_p)
-              and torch.equal(s2, dpb._fill(a, x_p)))
+              and torch.equal(s2, dpb._fill(a, x_p))
+              and torch.equal(M_cta, M_p) and torch.equal(x_cta, x_p))
         before = x2c.launches["blocked_compose"]
         s, f = dpb.dp_scores_blocked(*args, L=L)
         solves = x2c.launches["blocked_compose"] - before
@@ -1494,8 +1508,9 @@ def main() -> int:
         err = max_abs_err(s, s_p)
         worst_x2 = max(worst_x2, err)
         b1_ok = bitwise_equal(s[~f], seq[~f])
-        log(f"X2 {what} B={B} V={V} W={W} K={K} L={L}: compose, propagate, "
-            f"fill {'integer-equal' if ok else 'MISMATCH'}, scores and flags "
+        log(f"X2 {what} B={B} V={V} W={W} K={K} L={L}: compose ({routes[0]} "
+            f"and cta), propagate ({routes[1]} and cta), fill "
+            f"{'integer-equal' if ok else 'MISMATCH'}, scores and flags "
             f"{'bitwise' if ok else 'MISMATCH'} (max_abs_err={err}, {solves} "
             f"solves, {int(f.sum())} rows flagged); unflagged rows against B1 "
             f"{'bitwise' if b1_ok else 'MISMATCH'}")
@@ -1560,6 +1575,16 @@ def main() -> int:
         a = dpb._rows(dpb._esc2_band(args[0], args[2], args[3]), e_ex, L)
         M = x2c.compose_cuda(args[0], args[2], args[3], e_ex, L)
         x_in = x2c.propagate_cuda(M)
+        cta_c = x2c.compose_plan(B, G, W, L, route="cta")
+        cta_p = x2c.propagate_plan(B, G, W, route="cta")
+        # The first design's routes, forced: timed in turns with the new.
+        cta = {
+            "blocked_compose": lambda: x2c.compose_cuda(
+                args[0], args[2], args[3], e_ex, L, plan=cta_c),
+            "blocked_propagate": lambda: x2c.propagate_cuda(M, plan=cta_p),
+        }
+        new_route = {"blocked_compose": x2c.compose_plan(B, G, W, L)["route"],
+                     "blocked_propagate": x2c.propagate_plan(B, G, W)["route"]}
         fns = {
             "blocked_compose": (
                 lambda: x2c.compose_cuda(args[0], args[2], args[3], e_ex, L),
@@ -1589,9 +1614,19 @@ def main() -> int:
             out[name] = {"ms": (ka + kb) / 2, "plain_ms": (pa + pb) / 2,
                          "bound_ms": max(t_b, t_o),
                          "bound_by": "bytes" if t_b >= t_o else "operations"}
+            turns = ""
+            if name in cta:
+                ca = time_ms(cta[name], 10)
+                na, nb2 = time_ms(k_fn, 10), time_ms(k_fn, 10)
+                cb = time_ms(cta[name], 10)
+                out[name].update(plan_route=new_route[name], cta_ms=(ca + cb) / 2,
+                                 turns_ms=[ca, na, nb2, cb])
+                turns = (f"; in turns with route cta (cta, {new_route[name]}, "
+                         f"{new_route[name]}, cta): {ca} / {na} / {nb2} / {cb} ms")
             log(f"{name} at {what} B={B} V={V} W={W} L={L}: kernel {ka} / {kb} "
                 f"ms, plain PyTorch {pa} / {pb} ms, bound {max(t_b, t_o)} ms "
-                f"(bytes {nb_} -> {t_b} ms, int32 ops {ops} -> {t_o} ms) [{card}]")
+                f"(bytes {nb_} -> {t_b} ms, int32 ops {ops} -> {t_o} ms)"
+                f"{turns} [{card}]")
         t_b = bound_ms(band + s2_bytes)
         t_o = sum(w[1] for w in work.values()) / INT32_OPS_PER_S * 1e3
         out["solve"] = {"ms": sum(out[n]["ms"] for n in X2),
@@ -1618,7 +1653,24 @@ def main() -> int:
     def x2_zero() -> None:
         for k in X2:
             x2c.launches[k] = 0
+        for counts in (x2c.compose_routes, x2c.propagate_routes):
+            for k in counts:
+                counts[k] = 0
+        x2c.route_widths.clear()
         dp_cuda.launches = 0
+
+    def x2_routes_new(what) -> dict:
+        """Fails unless every compose and propagate at W in {16, 32} took
+        the new route in the run just ended; the run's counts by (kernel,
+        route, W)."""
+        old = {k: n for k, n in x2c.route_widths.items()
+               if k[1] == "cta" and k[2] in (16, 32)}
+        new = sum(n for k, n in x2c.route_widths.items()
+                  if k[1] in ("column", "warp") and k[2] in (16, 32))
+        if old or not new:
+            raise SystemExit(f"chip_smoke: {what}: X2 at W in (16, 32) not on "
+                             f"the new routes ({x2c.route_widths})")
+        return dict(x2c.route_widths)
 
     def run_text(data, c):
         out = io.StringIO()
@@ -1640,6 +1692,7 @@ def main() -> int:
     run_text(otext, ocfg)  # warm-up
     oruns = {"cuda": [], "host": []}
     colshard_launches = dict.fromkeys((*X2, "dp_scan"), 0)
+    colshard_routes: dict = {}
     for which in ("cuda", "host", "host", "cuda", "cuda", "host"):
         x2_zero()
         r = run_text(otext, ocfg if which == "cuda" else ohost)
@@ -1651,6 +1704,8 @@ def main() -> int:
             for k in X2:
                 colshard_launches[k] += x2c.launches[k]
             colshard_launches["dp_scan"] += dp_cuda.launches
+            for key, n in x2_routes_new("the oversize cell").items():
+                colshard_routes[key] = colshard_routes.get(key, 0) + n
     ost = oruns["cuda"][-1][1]
     if ost.colshard == 0 or any(colshard_launches[k] == 0 for k in X2):
         raise SystemExit(f"chip_smoke: the oversize cell never ran colshard "
@@ -1658,8 +1713,9 @@ def main() -> int:
     omed = {k: sorted(r[0] for r in v)[1] for k, v in oruns.items()}
     log(f"oversize cell: targets={ost.targets} colshard={ost.colshard} "
         f"host 'oversize'={ost.fallback_reasons.get('oversize', 0)} "
-        f"batches={ost.batches}; launches over 3 runs {colshard_launches}; "
-        f"FASTA byte-equal to the single-thread native engine [{card}]")
+        f"batches={ost.batches}; launches over 3 runs {colshard_launches}, "
+        f"by (kernel, route, W) {colshard_routes}; FASTA byte-equal to the "
+        f"single-thread native engine [{card}]")
     log(f"oversize cell end-to-end: cuda {obases / omed['cuda']:.1f} b/s, host "
         f"{obases / omed['host']:.1f} b/s (medians of 3, in turns; walls "
         f"{[round(r[0], 4) for r in oruns['cuda']]} / "
@@ -1680,6 +1736,7 @@ def main() -> int:
     run_text(text, bcfg)  # warm-up
     bruns = {"blocked": [], "cuda": []}
     blocked_launches = dict.fromkeys((*X2, "dp_scan"), 0)
+    blocked_routes: dict = {}
     for which in ("blocked", "cuda", "cuda", "blocked", "blocked", "cuda"):
         x2_zero()
         r = run_text(text, bcfg if which == "blocked" else cfg)
@@ -1691,6 +1748,8 @@ def main() -> int:
             for k in X2:
                 blocked_launches[k] += x2c.launches[k]
             blocked_launches["dp_scan"] += dp_cuda.launches
+            for key, n in x2_routes_new("backend='blocked'").items():
+                blocked_routes[key] = blocked_routes.get(key, 0) + n
     if any(blocked_launches[k] == 0 for k in X2):
         raise SystemExit(f"chip_smoke: backend='blocked' never ran X2 "
                          f"({blocked_launches})")
@@ -1698,7 +1757,8 @@ def main() -> int:
     bmed = {k: sorted(r[0] for r in v)[1] for k, v in bruns.items()}
     log(f"blocked on the bench cell: batches={bst.batches} rows flagged and "
         f"re-run through B1 {[r[1].blocked_reruns for r in bruns['blocked']]}; "
-        f"launches over 3 runs {blocked_launches}; {bases / bmed['blocked']:.1f} "
+        f"launches over 3 runs {blocked_launches}, by (kernel, route, W) "
+        f"{blocked_routes}; {bases / bmed['blocked']:.1f} "
         f"b/s against cuda {bases / bmed['cuda']:.1f} (medians of 3, in turns; "
         f"walls {[round(r[0], 4) for r in bruns['blocked']]} / "
         f"{[round(r[0], 4) for r in bruns['cuda']]} s); FASTA byte-equal [{card}]")
@@ -1810,6 +1870,14 @@ def main() -> int:
         # No one PyTorch call computes a max-plus solve.
         "library_ms": None,
         "oversize_call": x2_over[name],
+        **({"plan_route": x2_bench[name]["plan_route"],
+            "cta_ms": x2_bench[name]["cta_ms"],
+            "launches_by_route": {
+                f"{r}/W={w}": colshard_routes.get((name, r, w), 0)
+                + blocked_routes.get((name, r, w), 0)
+                for (kn, r, w) in sorted({*colshard_routes, *blocked_routes})
+                if kn == name}}
+           if name in ("blocked_compose", "blocked_propagate") else {}),
     } for name, line, cs_line in (("blocked_compose", 121, 46),
                                   ("blocked_propagate", 137, 89),
                                   ("blocked_fill", 152, 116))]}),

@@ -136,10 +136,11 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.dagcon_align_traceback.argtypes = [vp] * 5 + [ci] * 10 + [vp]
     if name == "dp_blocked":
         for fn, argtypes in (
-            # (win, cov, unsup, eex, M, B, V, W, L, stream)
-            ("dagcon_blocked_compose", [vp] * 5 + [ci] * 4 + [vp]),
-            # (M, x_in, B, G, W, stream)
-            ("dagcon_blocked_propagate", [vp] * 2 + [ci] * 3 + [vp]),
+            # (win, cov, unsup, eex, M, B, V, W, L, route, blocks,
+            # threads, smem, stream)
+            ("dagcon_blocked_compose", [vp] * 5 + [ci] * 8 + [vp]),
+            # (M, x_in, B, G, W, route, warps, depth, chunk, smem, stream)
+            ("dagcon_blocked_propagate", [vp] * 2 + [ci] * 8 + [vp]),
             # (win, cov, unsup, eex, x_in, s2, B, V, W, L, stream)
             ("dagcon_blocked_fill", [vp] * 6 + [ci] * 4 + [vp]),
         ):

@@ -167,6 +167,197 @@ def _fill(a: torch.Tensor, x_in: torch.Tensor) -> torch.Tensor:
     return out.view(B, G * L)
 
 
+def compose_column_model(a: torch.Tensor, plan: dict | None = None
+                         ) -> torch.Tensor:
+    """`_compose` as the compose's "column" route computes it (the CPU
+    model of `blocked_compose_col_kernel`), integer for integer: CTA c's
+    thread t owns column t % (W+1) of block c * blocks + t // (W+1) (the
+    packing of `plan`, `ops/dp_blocked_cuda.py::compose_plan`; the
+    column route's own packing for this W where None); its W band
+    entries are a list of per-thread "registers", and at step t logical
+    row i sits in register (i - t) mod W, the new row 0 taking the
+    register of the dropped row W - 1 (the static renaming that the
+    kernel unrolls by groups of GS = min(W, 32) steps; past 32, the
+    registers move back after each group, so that row i is in register
+    i again); each max is split over accumulators i % NACC; row W stays
+    the identity's. The kernel instantiates W in COLUMN_WIDTHS with L a
+    multiple of W; the model takes any W and L (after a last, partial
+    group of r steps, logical row k ends in register (k - r) mod W)."""
+    from pbdagcon_tpu_torch.ops import dp_blocked_cuda as C
+
+    B, G, L, Wp = a.shape
+    W = Wp - 1
+    if plan is None:
+        nb = C._column_blocks(B, G, W, L)
+        plan = {"route": "column", "blocks": nb, "threads": C._r32(nb * Wp)}
+    if plan["route"] != "column":
+        raise ValueError(f"not a column-route plan: {plan}")
+    nb, threads = plan["blocks"], plan["threads"]
+    nacc = 4 if W >= 32 else 2
+    nblk = B * G
+    ctas = -(-nblk // nb)
+    t = torch.arange(threads)
+    q, j = t // Wp, t % Wp
+    blk = torch.arange(ctas)[:, None] * nb + q[None, :]
+    live = (q[None, :] < nb) & (blk < nblk)
+    blk, j = blk[live], j.expand(ctas, threads)[live]
+    cover = torch.zeros(nblk * Wp, dtype=torch.int64)
+    cover.index_add_(0, blk * Wp + j, torch.ones_like(blk))
+    if not bool((cover == 1).all()):
+        raise AssertionError("the packing does not cover every column once")
+    af = a.reshape(nblk, L, Wp)[blk]  # [N, L, Wp]: each thread's block
+    sent = torch.full_like(j, SENT, dtype=torch.int32)
+    zero = torch.zeros_like(sent)
+    c = [torch.where(j == i, zero, sent) for i in range(W)]
+    cW = torch.where(j == W, zero, sent)
+    gs = min(W, 32)
+    for step in range(L):
+        u = step % gs  # the step within its group
+        at = af[:, L - 1 - step]
+        acc = [sent] * nacc
+        for i in range(Wp):
+            reg = cW if i == W else c[(i - u) % W]
+            acc[i % nacc] = torch.maximum(at[:, i] + reg, acc[i % nacc])
+        new = acc[0]
+        for h in range(1, nacc):
+            new = torch.maximum(new, acc[h])
+        c[(W - 1 - u) % W] = new
+        if u == gs - 1 and gs < W:  # the registers move back
+            c = [c[(i - gs) % W] for i in range(W)]
+    M = torch.empty((nblk, Wp, Wp), dtype=torch.int32)
+    r = L % gs if gs < W else L % W
+    for k in range(W):
+        M[blk, k, j] = c[(k - r) % W]
+    M[blk, W, j] = cW
+    return M.view(B, G, Wp, Wp).to(a.device)
+
+
+def propagate_ring_model(M: torch.Tensor, plan: dict | None = None,
+                         base: int = 0) -> torch.Tensor:
+    """`_propagate` as the propagate's "warp" route computes it (the CPU
+    model of `blocked_propagate_warp_kernel`), integer for integer. The
+    tensor starts `base` ints (0-3) past a 16-byte boundary; each
+    target's M is one run of G (W+1)^2 int32, cut into chunks of K =
+    `plan["chunk"]` matrices (chunk c: steps cK .. cK+K-1, matrix
+    g = G-1-s at step s; `propagate_plan`'s own plan where None). A
+    producer puts chunk c into ring slot c % depth as the kernel copies
+    it: one bulk copy of its 16-byte-aligned superset (neighbouring
+    matrices' words included), except where that superset leaves the
+    tensor (a misaligned first or last run): there the bulk copy shrinks
+    by a 16-byte word and lanes copy the run's words in it. Slot words
+    nothing wrote hold a poison value above any score. The consumer
+    waits on step s + 1's chunk (loading its row a step ahead) before it
+    releases step s, so the producer's iteration c may run once the
+    consumer finished chunk c - depth; the model runs it as late as that
+    allows, and it writes to x_in the x of every step the consumer
+    finished, from a history ring of depth x K vectors (it asserts that
+    none is overwritten before). Lane l takes band rows l, l + 32, .. (one
+    at W = 16 and 32, two up to W = 64, four past it; at most W: a lane
+    past the band recomputes row W) with eight
+    accumulators at W = 16 and 32, four elsewhere (term j on accumulator
+    j % n); the exit row is lane W's row at W = 16, else the max over the
+    lanes of each lane's columns l, l + 32, .."""
+    from pbdagcon_tpu_torch.ops import dp_blocked_cuda as C
+
+    B, G, Wp, _ = M.shape
+    W, WW = Wp - 1, Wp * Wp
+    if plan is None:
+        plan = C.propagate_plan(B, G, W)
+    if plan["route"] != "warp":
+        raise ValueError(f"not a warp-route plan: {plan}")
+    depth, K = plan["depth"], plan["chunk"]
+    H, NC = depth * K, -(-G // K)
+    slot = C.prop_slot_ints(W, K)
+    poison = (1 << 30) + 7
+    flat = torch.cat([torch.zeros(base, dtype=torch.int32),
+                      M.reshape(-1).cpu()])
+    lo, hi = base, base + B * G * WW  # the tensor in `flat`, in ints
+    ring = torch.full((B, depth, slot), poison, dtype=torch.int32)
+
+    def lo_g(c: int) -> int:  # chunk c holds matrices lo_g(c) .. G-1-cK
+        return max(0, G - (c + 1) * K)
+
+    def issue(c: int) -> None:
+        st = c % depth
+        ring[:, st] = poison
+        for b in range(B):
+            src = base + (b * G + lo_g(c)) * WW
+            n = (G - c * K - lo_g(c)) * WW
+            mis = src % 4
+            a0, a1 = src - mis, src + n + (4 - (mis + n) % 4) % 4
+            b0 = a0 if a0 >= lo else a0 + 4
+            b1 = a1 if a1 <= hi else a1 - 4
+            assert (a1 - a0) % 4 == 0 and a1 - a0 <= slot
+            for w in list(range(a0, b0)) + list(range(b1, a1)):  # lanes
+                if src <= w < src + n:
+                    ring[b, st, w - a0] = flat[w]
+            if b1 > b0:
+                ring[b, st, b0 - a0:b1 - a0] = flat[b0:b1]
+
+    def matrix(b: int, s: int) -> torch.Tensor:
+        c, g = s // K, G - 1 - s
+        off = (base + (b * G + lo_g(c)) * WW) % 4 + (g - lo_g(c)) * WW
+        return ring[b, c % depth, off:off + WW]
+
+    hist = torch.full((B, H, Wp), poison, dtype=torch.int32)
+    held = [-1] * H  # the step whose x each history vector holds
+    hist[:, 0] = SENT
+    hist[:, 0, W] = 0
+    held[0] = 0
+    x_in = torch.full((B, G, Wp), poison, dtype=torch.int32)
+    prod = {"next": 0, "flushed": 0}
+
+    def producer_until(c_last: int, cons: int) -> None:
+        while prod["next"] <= c_last:
+            c = prod["next"]
+            need = G if c == NC else max(0, (c - depth + 1) * K)
+            assert cons >= need, "the consumer and producer deadlock"
+            ready = min(cons + 1, G)
+            for t in range(prod["flushed"], ready):
+                assert held[t % H] == t
+                x_in[:, G - 1 - t] = hist[:, t % H]
+            prod["flushed"] = max(prod["flushed"], ready)
+            if c < NC:
+                issue(c)
+            prod["next"] += 1
+
+    R = 1 if W in (16, 32) else (2 if W <= 64 else 4)  # rows a lane
+    lanes = torch.arange(32)
+    rows = torch.stack([(lanes + 32 * k).clamp_max(W) for k in range(R)], 1)
+    owned = (lanes[:, None] + 32 * torch.arange(R)[None, :]) < W
+    cols = torch.stack([lanes + 32 * k for k in range(-(-Wp // 32))], 1)
+    sent = torch.full((), SENT, dtype=torch.int32)
+    nacc = 8 if W in (16, 32) else 4
+    part = torch.arange(Wp) % nacc  # term j's accumulator
+    producer_until(depth - 1, 0)
+    for s in range(G):
+        if s + 1 < G:  # the next step's chunk, before this step's release
+            producer_until((s + 1) // K, s)
+        x = hist[:, s % H]
+        m = torch.stack([matrix(b, s) for b in range(B)]).view(B, Wp, Wp)
+        ex = m[:, W, cols.clamp_max(W)] + x[:, cols.clamp_max(W)]
+        ex = torch.where(cols < Wp, ex, sent).amax(-1)  # each lane's columns
+        e = torch.maximum(ex.amax(-1), sent)  # the max over the warp
+        terms = m[:, rows] + x[:, None, None, :]  # [B, 32, R, Wp]
+        acc = [torch.maximum(torch.where(part == h, terms, sent).amax(-1),
+                             sent) for h in range(nacc)]
+        mine = acc[0]
+        for h in range(1, nacc):
+            mine = torch.maximum(mine, acc[h])  # [B, 32, R]
+        if W == 16:  # lane W's row is the exit row
+            e = mine[:, W, 0]
+        assert held[(s + 1) % H] < prod["flushed"], "x overwritten unwritten"
+        xn = hist[:, (s + 1) % H]
+        for k in range(R):
+            for lane in range(32):
+                if owned[lane, k]:
+                    xn[:, lane + 32 * k] = mine[:, lane, k]
+        xn[:, W] = e
+        held[(s + 1) % H] = s + 1
+    producer_until(NC, G)
+    return x_in.to(M.device)
+
+
 def _solve_band(esc2: torch.Tensor, e_exit2: torch.Tensor, L: int = 64):
     """Plain PyTorch version of the banded solve: half-unit scores
     [B, V] int32 (sentinel-contaminated where unreachable), the same

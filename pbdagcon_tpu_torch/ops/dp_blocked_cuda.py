@@ -11,22 +11,62 @@ anything the kernels do not take, and raises if the build or the launch
 fails. They launch on the current stream without synchronising; every
 output is `torch.empty` (every element is written).
 
+The compose has two routes, chosen by `compose_plan`: "column" (a thread
+per column of one block's M, the column in registers; W in
+COLUMN_WIDTHS, L a multiple of W) wherever it fits, else "cta" (a CTA
+per block, the first design). The propagate has two, chosen by
+`propagate_plan`: "warp" (a producer and a consumer warp per target, M
+streamed through a ring of shared-memory slots of `chunk` matrices) for
+every W, and "cta" (a CTA per target) only where a plan forces it. Each
+C entry checks its plan and refuses one it does not take.
+
 `launches` counts each kernel's launches by name ("blocked_compose",
-"blocked_propagate", "blocked_fill").
+"blocked_propagate", "blocked_fill"); `compose_routes` and
+`propagate_routes` count the two kernels' launches by route, and
+`route_widths` by (kernel, route, W).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from pbdagcon_tpu_torch.ops import _build
 
 launches = {"blocked_compose": 0, "blocked_propagate": 0, "blocked_fill": 0}
+# The compose's and the propagate's launches by route, and both by
+# (kernel, route, W).
+compose_routes = {"cta": 0, "column": 0}
+propagate_routes = {"cta": 0, "warp": 0}
+route_widths: dict[tuple[str, str, int], int] = {}
 
 MAX_W = 128
 MAX_L = 128
 # One CTA's shared memory on Hopper.
 MAX_SMEM = 232_448
+SMS = 132
+
+COMPOSE_ROUTES = {"cta": 0, "column": 1}
+PROPAGATE_ROUTES = {"cta": 0, "warp": 1}
+# The column route's widths (the kernel's template instances) and its
+# limits: threads a CTA, blocks a CTA, and the shared memory an unforced
+# plan gives a CTA: small CTAs, many an SM, so that one CTA's copies
+# overlap the others' steps (on an H100, 1-3 blocks a CTA ran the bench
+# batch ~9% faster than 9 with more lanes busy; `tools/blocked_ablate.py`).
+COLUMN_WIDTHS = (16, 32, 64)
+COLUMN_MAX_THREADS = 512
+COLUMN_MAX_BLOCKS = 32
+COLUMN_SMEM_TARGET = 24 * 1024
+# The warp route's limits: targets a CTA, two warps each (an unforced
+# plan takes at most PROP_WARPS), matrices a ring slot (PROP_CHUNK, fewer
+# where two slots would not fit) and slots a target (PROP_DEPTH).
+PROP_MAX_WARPS = 8
+PROP_WARPS = 4
+PROP_MAX_CHUNK = 32
+PROP_CHUNK = 8
+PROP_MAX_DEPTH = 64
+PROP_DEPTH = 4
 
 
 def _staged_bytes(W: int, L: int) -> int:
@@ -46,6 +86,167 @@ def fill_smem(W: int, L: int) -> int:
     """Four warps' window rings, scores and staged blocks
     (`dagcon_blocked_fill_smem`)."""
     return 4 * (-(-((W + L) * 4 + _staged_bytes(W, L)) // 16) * 16)
+
+
+def _r32(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def column_smem(W: int, L: int, blocks: int) -> int:
+    """Shared memory of a CTA of the column route (the kernel file's
+    `col_smem`): each block's a rows (L rows of whole int4, + 16 bytes),
+    its raw exit half-units and band, its cov and unsup (L + W each)."""
+    a_ints = L * ((W + 4) // 4 * 4) + 4
+    return blocks * (a_ints * 4 + L * 4 + L * W * 2 + (L + W) * 3)
+
+
+def propagate_smem(W: int) -> int:
+    """Dynamic shared memory of the propagate's "cta" route: two M_g
+    buffers and x (`dagcon_blocked_propagate_smem`)."""
+    return (2 * (W + 1) * (W + 1) + (W + 1)) * 4
+
+
+def prop_slot_ints(W: int, chunk: int) -> int:
+    """Ints of one ring slot of the warp route (the kernel file's
+    `prop_slot_ints`): the 16-byte-aligned superset of a chunk of
+    `chunk` consecutive (W+1)^2-int32 matrices, which starts 0-3 ints
+    before it and ends at most 3 past it."""
+    return (chunk * (W + 1) ** 2 + 6) // 4 * 4
+
+
+def prop_warp_bytes(W: int, depth: int, chunk: int) -> int:
+    """Shared memory of one target of the warp route (`prop_warp_bytes`):
+    `depth` slots, the history of x (depth x chunk vectors of whole
+    int4s), an mbarrier a slot and the consumer's step count."""
+    xp = (W + 4) // 4 * 4
+    return -(-((depth * prop_slot_ints(W, chunk) + depth * chunk * xp) * 4
+               + depth * 8 + 16) // 16) * 16
+
+
+def _column_blocks(B: int, G: int, W: int, L: int) -> int:
+    """The blocks a CTA of the column route: the most lanes busy (ties
+    to fewer blocks) within COLUMN_SMEM_TARGET and COLUMN_MAX_THREADS,
+    and few enough that B * G blocks still make 2 x SMS CTAs where they
+    can; 1 where even one block passes the target."""
+    cap = max(1, B * G // (2 * SMS))
+    best, best_use = 1, 0.0
+    for nb in range(1, min(cap, COLUMN_MAX_BLOCKS) + 1):
+        threads = _r32(nb * (W + 1))
+        if threads > COLUMN_MAX_THREADS or column_smem(W, L, nb) > COLUMN_SMEM_TARGET:
+            break
+        use = nb * (W + 1) / threads
+        if use > best_use:
+            best, best_use = nb, use
+    return best
+
+
+def compose_plan(B: int, G: int, W: int, L: int, route: str | None = None,
+                 blocks: int | None = None) -> dict:
+    """The compose's launch plan (`_compose_plan`, cached: the solve
+    asks for it every launch)."""
+    return dict(_compose_plan(B, G, W, L, route, blocks))
+
+
+@functools.lru_cache(maxsize=256)
+def _compose_plan(B: int, G: int, W: int, L: int, route: str | None,
+                  blocks: int | None) -> dict:
+    """The compose's launch plan for B targets of G blocks of L rows at
+    band width W. "column" where W is in COLUMN_WIDTHS and L a multiple
+    of W, else "cta". `route` forces one and raises ValueError where it
+    does not fit; `blocks` forces the blocks a CTA of the column route
+    (the tests and `tools/blocked_ablate.py`). Keys: route, blocks (1 on
+    "cta"), threads, smem."""
+    if route not in (None, *COMPOSE_ROUTES):
+        raise ValueError(f"unknown compose route {route!r}")
+    if not (1 <= W <= MAX_W and 1 <= L <= MAX_L and G >= 1 and B >= 0):
+        raise ValueError(f"no compose for B={B}, G={G}, W={W}, L={L}")
+    fits = W in COLUMN_WIDTHS and L % W == 0
+    if route == "column" and not fits:
+        raise ValueError(f"the column route takes W in {COLUMN_WIDTHS} with L "
+                         f"a multiple of W, got W={W}, L={L}")
+    if route == "cta" or not fits:
+        if blocks not in (None, 1):
+            raise ValueError("the cta route takes one block a CTA")
+        if compose_smem(W, L) > MAX_SMEM:
+            raise ValueError(f"W={W}, L={L} outgrow one CTA's shared memory")
+        return {"route": "cta", "blocks": 1, "threads": _r32(W + 1),
+                "smem": compose_smem(W, L)}
+    if blocks is None:
+        blocks = _column_blocks(B, G, W, L)
+    threads = _r32(blocks * (W + 1))
+    smem = column_smem(W, L, blocks)
+    if not (1 <= blocks <= COLUMN_MAX_BLOCKS and threads <= COLUMN_MAX_THREADS
+            and smem <= MAX_SMEM):
+        raise ValueError(f"{blocks} blocks a CTA do not fit the column route "
+                         f"at W={W}, L={L}")
+    return {"route": "column", "blocks": blocks, "threads": threads,
+            "smem": smem}
+
+
+def propagate_plan(B: int, G: int, W: int, route: str | None = None,
+                   warps: int | None = None, depth: int | None = None,
+                   chunk: int | None = None) -> dict:
+    """The propagate's launch plan (`_propagate_plan`, cached)."""
+    return dict(_propagate_plan(B, G, W, route, warps, depth, chunk))
+
+
+@functools.lru_cache(maxsize=256)
+def _propagate_plan(B: int, G: int, W: int, route: str | None,
+                    warps: int | None, depth: int | None,
+                    chunk: int | None) -> dict:
+    """The propagate's launch plan for B targets of G blocks at band
+    width W: "warp" unless `route="cta"` forces the first design.
+    `warps` (targets a CTA, a consumer and a producer warp each),
+    `chunk` (matrices a ring slot, one bulk copy) and `depth` (slots a
+    target; at least 2 where there are two chunks or more, as the
+    consumer waits on the next chunk before it releases its own)
+    override the defaults, for the tests and `tools/blocked_ablate.py`,
+    and raise ValueError where they do not fit. Keys: route, warps,
+    depth and chunk (0 on "cta"), smem."""
+    if route not in (None, *PROPAGATE_ROUTES):
+        raise ValueError(f"unknown propagate route {route!r}")
+    if not (1 <= W <= MAX_W and G >= 1 and B >= 0):
+        raise ValueError(f"no propagate for B={B}, G={G}, W={W}")
+    if route == "cta":
+        if any(v not in (None, 0) for v in (warps, depth, chunk)):
+            raise ValueError("the cta route takes no warps, depth or chunk")
+        return {"route": "cta", "warps": 0, "depth": 0, "chunk": 0,
+                "smem": propagate_smem(W)}
+
+    def least(n: int, k: int) -> int:  # bytes of n targets at the least depth
+        return n * prop_warp_bytes(W, min(-(-G // k), 2), k)
+
+    if warps is None:
+        warps = max(1, min(PROP_WARPS, -(-B // SMS)))
+        while warps > 1 and least(warps, 1) > MAX_SMEM:
+            warps -= 1
+    if chunk is None:
+        chunk = max(1, min(PROP_CHUNK, G))
+        while chunk > 1 and least(warps, chunk) > MAX_SMEM:
+            chunk -= 1
+    if not 1 <= chunk <= min(G, PROP_MAX_CHUNK):
+        raise ValueError(f"chunks of {chunk} matrices do not fit G={G}")
+    nc = -(-G // chunk)
+    if depth is None:
+        depth = min(nc, 2)
+        while (depth < min(nc, PROP_DEPTH)
+               and warps * prop_warp_bytes(W, depth + 1, chunk) <= MAX_SMEM):
+            depth += 1
+    smem = warps * prop_warp_bytes(W, depth, chunk)
+    if not (1 <= warps <= PROP_MAX_WARPS
+            and min(nc, 2) <= depth <= min(nc, PROP_MAX_DEPTH)
+            and smem <= MAX_SMEM):
+        raise ValueError(f"{warps} targets of {depth} slots of {chunk} "
+                         f"matrices do not fit the warp route at W={W}, G={G}")
+    return {"route": "warp", "warps": warps, "depth": depth, "chunk": chunk,
+            "smem": smem}
+
+
+def _count(kernel: str, routes: dict, route: str, W: int) -> None:
+    launches[kernel] += 1
+    routes[route] += 1
+    key = (kernel, route, W)
+    route_widths[key] = route_widths.get(key, 0) + 1
 
 
 def _check(t: torch.Tensor, name: str, dtypes, shape, device) -> None:
@@ -75,33 +276,41 @@ def _check_band(win_count, cov, unsup, e_ex2, L) -> tuple[int, int, int]:
     if not 1 <= L <= MAX_L or V == 0 or V % L:
         raise ValueError(f"kernels take 1 <= L <= {MAX_L} dividing V > 0, got "
                          f"L={L}, V={V}")
-    if max(compose_smem(W, L), fill_smem(W, L)) > MAX_SMEM:
+    if fill_smem(W, L) > MAX_SMEM:
         raise ValueError(f"W={W}, L={L} outgrow one CTA's shared memory")
     return B, V, W
 
 
-def compose_cuda(win_count, cov, unsup, e_ex2, L: int) -> torch.Tensor:
-    """Block transfer matrices M [B, V // L, W + 1, W + 1] int32."""
+def compose_cuda(win_count, cov, unsup, e_ex2, L: int,
+                 plan: dict | None = None) -> torch.Tensor:
+    """Block transfer matrices M [B, V // L, W + 1, W + 1] int32, on the
+    route of `plan` (`compose_plan`; made here when None)."""
     B, V, W = _check_band(win_count, cov, unsup, e_ex2, L)
     device = win_count.device
+    if plan is None:
+        plan = compose_plan(B, V // L, W, L)
+    if plan.get("route") not in COMPOSE_ROUTES:
+        raise ValueError(f"not a compose plan: {plan}")
     lib = _build.load("dp_blocked")
     M = torch.empty((B, V // L, W + 1, W + 1), dtype=torch.int32, device=device)
-    if B == 0:
-        return M
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.dagcon_blocked_compose(
             win_count.data_ptr(), cov.data_ptr(), unsup.data_ptr(),
-            e_ex2.data_ptr(), M.data_ptr(), B, V, W, L, stream,
+            e_ex2.data_ptr(), M.data_ptr(), B, V, W, L,
+            COMPOSE_ROUTES[plan["route"]], plan["blocks"], plan["threads"],
+            plan["smem"], stream,
         )
     _build.check(lib, rc, "blocked_compose launch")
-    launches["blocked_compose"] += 1
+    if B:
+        _count("blocked_compose", compose_routes, plan["route"], W)
     return M
 
 
-def propagate_cuda(M: torch.Tensor) -> torch.Tensor:
+def propagate_cuda(M: torch.Tensor, plan: dict | None = None) -> torch.Tensor:
     """Incoming boundary vectors x_in [B, G, W + 1] int32 of every block
-    from the transfer matrices M [B, G, W + 1, W + 1]."""
+    from the transfer matrices M [B, G, W + 1, W + 1], on the route of
+    `plan` (`propagate_plan`; made here when None)."""
     device = M.device
     if device.type != "cuda":
         raise ValueError(f"propagate_cuda needs CUDA tensors, got {device}")
@@ -112,17 +321,22 @@ def propagate_cuda(M: torch.Tensor) -> torch.Tensor:
     if not 2 <= Wp <= MAX_W + 1 or G == 0:
         raise ValueError(f"kernel takes 1 <= W <= {MAX_W} and G > 0, got "
                          f"W={Wp - 1}, G={G}")
+    if plan is None:
+        plan = propagate_plan(B, G, Wp - 1)
+    if plan.get("route") not in PROPAGATE_ROUTES:
+        raise ValueError(f"not a propagate plan: {plan}")
     lib = _build.load("dp_blocked")
     x_in = torch.empty((B, G, Wp), dtype=torch.int32, device=device)
-    if B == 0:
-        return x_in
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.dagcon_blocked_propagate(
-            M.data_ptr(), x_in.data_ptr(), B, G, Wp - 1, stream
+            M.data_ptr(), x_in.data_ptr(), B, G, Wp - 1,
+            PROPAGATE_ROUTES[plan["route"]], plan["warps"], plan["depth"],
+            plan["chunk"], plan["smem"], stream,
         )
     _build.check(lib, rc, "blocked_propagate launch")
-    launches["blocked_propagate"] += 1
+    if B:
+        _count("blocked_propagate", propagate_routes, plan["route"], Wp - 1)
     return x_in
 
 
@@ -156,7 +370,7 @@ def solve_band_cuda(
     L: int,
 ) -> torch.Tensor:
     """Half-unit scores [B, V] int32 of one banded solve: compose,
-    propagate, fill."""
+    propagate, fill, each on its unforced plan."""
     M = compose_cuda(win_count, cov, unsup, e_ex2, L)
     x_in = propagate_cuda(M)
     return fill_cuda(win_count, cov, unsup, e_ex2, x_in, L)

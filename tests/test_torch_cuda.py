@@ -954,6 +954,152 @@ def test_colshard_and_blocked_backend_on_card(card):
         assert dp_blocked_cuda.launches["blocked_compose"] > before
 
 
+def _offset_copy(t: torch.Tensor, k: int) -> torch.Tensor:
+    """A contiguous copy of `t` that starts k elements into its buffer
+    (off the 16-byte boundaries the kernels' bulk copies want)."""
+    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    out = buf[k:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("W", [16, 32, 64, 128])
+@pytest.mark.parametrize("V,K", [(704, 16), (8192, 0)])
+def test_blocked_routes_match_plain_phases(card, W, V, K):
+    """The compose's "column" and "cta" routes and the propagate's
+    "warp" and "cta" routes, each integer-equal to its plain phase and
+    to the other route; the band and M also off 16-byte boundaries."""
+    from pbdagcon_tpu_torch.ops import dp_blocked as tbl
+    from pbdagcon_tpu_torch.ops import dp_blocked_cuda as C
+
+    rng = np.random.default_rng(300 * W + K)
+    batch = tdp.random_batch(rng, 5 if V > 1000 else 37, V, W, K)
+    t = batch_to_torch(batch, card)
+    win, cov, uns = t["win_count"], t["cov"], t["unsup"]
+    e_ex = tbl.exit_half_units(t["exit_count"])
+    B, L = win.shape[0], tbl._blocked_L(V)
+    G = V // L
+    a = tbl._rows(tbl._esc2_band(win, cov, uns), e_ex, L)
+    M_p = tbl._compose(a)
+    x_p = tbl._propagate(M_p)
+    plans = [C.compose_plan(B, G, W, L), C.compose_plan(B, G, W, L, route="cta")]
+    assert plans[0]["route"] == ("column" if W in C.COLUMN_WIDTHS else "cta")
+    if W in C.COLUMN_WIDTHS:
+        plans.append(C.compose_plan(B, G, W, L, blocks=3))
+    for plan in plans:
+        M = C.compose_cuda(win, cov, uns, e_ex, L, plan=plan)
+        M_off = C.compose_cuda(_offset_copy(win, 3), cov, uns,
+                               _offset_copy(e_ex, 1), L, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(M, M_p), plan
+        assert torch.equal(M_off, M_p), plan
+    for plan in (C.propagate_plan(B, G, W),
+                 C.propagate_plan(B, G, W, route="cta"),
+                 C.propagate_plan(B, G, W, warps=3 if W < 128 else 1,
+                                  depth=min(G, 2), chunk=1),
+                 C.propagate_plan(B, G, W, warps=1, depth=2,
+                                  chunk=min(-(-G // 2), 5 if W < 64 else 1))):
+        for k in range(4):
+            x_in = C.propagate_cuda(_offset_copy(M_p, k), plan=plan)
+            torch.cuda.synchronize()
+            assert torch.equal(x_in, x_p), (plan, k)
+
+
+@pytest.mark.parametrize("B,G,W", [(3, 1, 32), (4, 7, 1), (2, 5, 128),
+                                   (0, 4, 16), (9, 40, 16), (1, 245, 32),
+                                   (5, 3, 65)])
+def test_blocked_propagate_on_random_m(card, B, G, W):
+    """Both propagate routes on random M (entries in [SENT, 2^28], so
+    the exit row is no identity row and many values are contaminated),
+    integer-equal to the plain phase, at every misalignment of M. Past
+    G = 4 the top entry is cut to 2^30 / G, so that no chain of G steps
+    leaves int32."""
+    from pbdagcon_tpu_torch.ops import dp_blocked as tbl
+    from pbdagcon_tpu_torch.ops import dp_blocked_cuda as C
+
+    rng = np.random.default_rng(B * 1000 + G * 10 + W)
+    Wp = W + 1
+    top = min(1 << 28, (1 << 30) // G)
+    raw = rng.integers(tbl.SENT, top, (B, G, Wp, Wp), dtype=np.int64)
+    near = rng.random(raw.shape) < 0.3  # values at and near SENT
+    raw = np.where(near, tbl.SENT + rng.integers(0, 64, raw.shape), raw)
+    M = torch.from_numpy(raw.astype(np.int32)).to(card)
+    want = tbl._propagate(M)
+    before = dict(C.propagate_routes)
+    for route, kw in (("warp", {}),
+                      ("warp", dict(warps=2 if W < 128 else 1,
+                                    depth=min(G, 2), chunk=1)),
+                      ("cta", {})):
+        plan = C.propagate_plan(B, G, W, route=route, **kw)
+        for k in range(4):
+            got = C.propagate_cuda(_offset_copy(M, k), plan=plan)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (plan, k)
+    n = 8 if B else 0
+    assert C.propagate_routes["warp"] == before["warp"] + n
+    assert C.propagate_routes["cta"] == before["cta"] + n // 2
+
+
+def test_blocked_solve_counts_routes(card):
+    """A solve at W = 16 and W = 32 takes the new routes, by the route
+    counts and by (kernel, route, W)."""
+    from pbdagcon_tpu_torch.ops import dp_blocked as tbl
+    from pbdagcon_tpu_torch.ops import dp_blocked_cuda as C
+
+    rng = np.random.default_rng(13)
+    for W in (16, 32):
+        t = batch_to_torch(tdp.random_batch(rng, 4, 512, W, 4), card)
+        e_ex = tbl.exit_half_units(t["exit_count"])
+        comp, prop = dict(C.compose_routes), dict(C.propagate_routes)
+        widths = dict(C.route_widths)
+        got = tbl.solve_band(t["win_count"], t["cov"], t["unsup"], e_ex, 64)
+        want = tbl.solve_band_reference(t["win_count"], t["cov"], t["unsup"],
+                                        e_ex, 64)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert C.compose_routes == {**comp, "column": comp["column"] + 1}
+        assert C.propagate_routes == {**prop, "warp": prop["warp"] + 1}
+        for key in (("blocked_compose", "column", W),
+                    ("blocked_propagate", "warp", W)):
+            assert C.route_widths[key] == widths.get(key, 0) + 1
+
+
+def test_blocked_entries_refuse_bad_plans(card):
+    """Each C entry refuses a plan it does not take, with no launch: the
+    wrong route, shared memory, threads, blocks, warps or depth."""
+    from pbdagcon_tpu_torch.ops import dp_blocked as tbl
+    from pbdagcon_tpu_torch.ops import dp_blocked_cuda as C
+
+    rng = np.random.default_rng(4)
+    t = batch_to_torch(tdp.random_batch(rng, 3, 256, 16, 4), card)
+    win, cov, uns = t["win_count"], t["cov"], t["unsup"]
+    e_ex = tbl.exit_half_units(t["exit_count"])
+    M = C.compose_cuda(win, cov, uns, e_ex, 64)
+    good_c, good_p = C.compose_plan(3, 4, 16, 64), C.propagate_plan(3, 4, 16)
+    before = (dict(C.launches), dict(C.compose_routes),
+              dict(C.propagate_routes))
+    for bad in ({**good_c, "smem": good_c["smem"] + 16},
+                {**good_c, "threads": good_c["threads"] + 32},
+                {**good_c, "blocks": 0},
+                {**good_c, "blocks": 40, "threads": 704,
+                 "smem": C.column_smem(16, 64, 40)},
+                C.compose_plan(3, 4, 32, 64),  # another W's plan
+                {**C.compose_plan(3, 4, 16, 64, route="cta"), "blocks": 2}):
+        with pytest.raises(RuntimeError, match="blocked_compose launch"):
+            C.compose_cuda(win, cov, uns, e_ex, 64, plan=bad)
+    for bad in ({**good_p, "smem": good_p["smem"] + 16},
+                {**good_p, "depth": 5},  # past G = 4
+                {**good_p, "depth": 1, "chunk": 1},  # would wait on itself
+                {**good_p, "chunk": 5},  # past G = 4
+                {**good_p, "warps": 9},
+                {"route": "cta", "warps": 1, "depth": 0, "chunk": 0,
+                 "smem": C.propagate_smem(16)},
+                C.propagate_plan(3, 4, 32)):
+        with pytest.raises(RuntimeError, match="blocked_propagate launch"):
+            C.propagate_cuda(M, plan=bad)
+    assert (C.launches, C.compose_routes, C.propagate_routes) == before
+
+
 def test_blocked_wrappers_reject_what_they_do_not_take(card):
     from pbdagcon_tpu_torch.ops import dp_blocked as tbl
     from pbdagcon_tpu_torch.ops import dp_blocked_cuda as C
@@ -963,6 +1109,16 @@ def test_blocked_wrappers_reject_what_they_do_not_take(card):
     win, cov, uns = t["win_count"], t["cov"], t["unsup"]
     e_ex = tbl.exit_half_units(t["exit_count"])
     before = dict(C.launches)
+    # Plans: an unknown route, a forced route that does not fit.
+    with pytest.raises(ValueError, match="not a compose plan"):
+        C.compose_cuda(win, cov, uns, e_ex, 64, plan={"route": "warp"})
+    with pytest.raises(ValueError, match="not a propagate plan"):
+        C.propagate_cuda(torch.zeros((3, 4, 17, 17), dtype=torch.int32,
+                                     device=card), plan={"route": "column"})
+    with pytest.raises(ValueError):
+        C.compose_plan(3, 4, 17, 64, route="column")
+    with pytest.raises(ValueError):
+        C.propagate_plan(3, 4, 16, depth=5)
     with pytest.raises(ValueError):  # L does not divide V
         C.solve_band_cuda(win, cov, uns, e_ex, 96)
     with pytest.raises(TypeError):  # the kernels read the int16 band
