@@ -88,19 +88,23 @@ Phases, in order; any failure exits non-zero before the last line:
    and the device worker's first-use warmup printed.
 11. Kernel X2 (`csrc/dp_blocked.cu`: the blocked max-plus solve's
    compose, propagate and fill) against its plain versions: each
-   kernel's output integer-equal (the compose and the propagate on their
-   planned routes, "column" and "warp", and on the forced "cta" routes),
+   kernel's output integer-equal (the compose, the propagate and the
+   fill on their planned routes, "column", "warp" and "lane", and on the
+   forced first designs, "cta", "cta" and "reduce"),
    the Kleene-iterated scores bitwise and the flags equal, the unflagged
    rows bitwise equal to B1's, on random batches (W 16-128, long edges),
    the bench batch and one target of the oversize workload (64 targets
    x 8000 bp x 30x, seed 1234, raw 'pre' with -a: every target past the
    top V bucket); the kernels timed with CUDA events in turns with their
-   plain phases, and the compose and the propagate in turns with their
-   "cta" routes, beside B1 on the bench batch. Then the oversize cell
+   plain phases, and each in turns with its first design (the fill also
+   replayed from CUDA graphs, with its chain's ns a step), beside B1 on
+   the bench batch, with the Kleene loop of `blocked` (its solves and
+   host checks) on that batch. Then the oversize cell
    through `run_stream` on "cuda" (the one-card colshard) in turns with
    "host", FASTA byte-equal to the single-thread native engine, colshard
-   targets and X2 launches > 0, every compose and propagate at W 16 and
-   32 on the new routes (by `route_widths`), b/s and a traced run; then
+   targets and X2 launches > 0, every compose, propagate and fill at W
+   16 and 32 on the new routes (by `route_widths`), b/s and a traced
+   run; then
    `backend="blocked"` on the bench cell in
    turns with "cuda", byte-equal, with its flagged rows and launches.
 
@@ -109,7 +113,10 @@ S s") as it ends. Then a JSON line of kernels (each with its launches
 on the main paths, max_abs_err, ms, plain_ms, bound_ms, bound_by and
 library_ms; hist and scatter also with their masked window and their
 per-call readings; blocked_compose and blocked_propagate with their
-planned route, the "cta" route's ms and their launches by route and W;
+planned route, the "cta" route's ms and their launches by route and W,
+blocked_fill with its planned route, the "reduce" route's ms, both
+routes' graph-replayed ms and chain figure, and its launches by route
+and W;
 align_scan with its route and the "cta" route's
 ms, align_traceback with its route, the "thread" route's ms, the chain
 figure (the longest path's steps, ns a step) and the B = 32 call), and
@@ -1488,15 +1495,20 @@ def main() -> int:
         s2 = x2c.fill_cuda(args[0], args[2], args[3], e_ex, x_in, L)
         M_p = dpb._compose(a)
         x_p = dpb._propagate(M_p)
+        s_p = dpb._fill(a, x_p)
         # The first design's routes, forced, on the same inputs.
         cta_c = x2c.compose_plan(B, V // L, W, L, route="cta")
         cta_p = x2c.propagate_plan(B, V // L, W, route="cta")
         M_cta = x2c.compose_cuda(args[0], args[2], args[3], e_ex, L, plan=cta_c)
         x_cta = x2c.propagate_cuda(M_p, plan=cta_p)
+        red_f = x2c.fill_plan(B, V // L, W, L, route="reduce")
+        s_red = x2c.fill_cuda(args[0], args[2], args[3], e_ex, x_p, L,
+                              plan=red_f)
         routes = (x2c.compose_plan(B, V // L, W, L)["route"],
-                  x2c.propagate_plan(B, V // L, W)["route"])
+                  x2c.propagate_plan(B, V // L, W)["route"],
+                  x2c.fill_plan(B, V // L, W, L)["route"])
         ok = (torch.equal(M, M_p) and torch.equal(x_in, x_p)
-              and torch.equal(s2, dpb._fill(a, x_p))
+              and torch.equal(s2, s_p) and torch.equal(s_red, s_p)
               and torch.equal(M_cta, M_p) and torch.equal(x_cta, x_p))
         before = x2c.launches["blocked_compose"]
         s, f = dpb.dp_scores_blocked(*args, L=L)
@@ -1509,8 +1521,9 @@ def main() -> int:
         worst_x2 = max(worst_x2, err)
         b1_ok = bitwise_equal(s[~f], seq[~f])
         log(f"X2 {what} B={B} V={V} W={W} K={K} L={L}: compose ({routes[0]} "
-            f"and cta), propagate ({routes[1]} and cta), fill "
-            f"{'integer-equal' if ok else 'MISMATCH'}, scores and flags "
+            f"and cta), propagate ({routes[1]} and cta), fill ({routes[2]} "
+            f"and reduce) {'integer-equal' if ok else 'MISMATCH'}, scores "
+            f"and flags "
             f"{'bitwise' if ok else 'MISMATCH'} (max_abs_err={err}, {solves} "
             f"solves, {int(f.sum())} rows flagged); unflagged rows against B1 "
             f"{'bitwise' if b1_ok else 'MISMATCH'}")
@@ -1577,14 +1590,20 @@ def main() -> int:
         x_in = x2c.propagate_cuda(M)
         cta_c = x2c.compose_plan(B, G, W, L, route="cta")
         cta_p = x2c.propagate_plan(B, G, W, route="cta")
+        red_f = x2c.fill_plan(B, G, W, L, route="reduce")
         # The first design's routes, forced: timed in turns with the new.
-        cta = {
+        first = {
             "blocked_compose": lambda: x2c.compose_cuda(
                 args[0], args[2], args[3], e_ex, L, plan=cta_c),
             "blocked_propagate": lambda: x2c.propagate_cuda(M, plan=cta_p),
+            "blocked_fill": lambda: x2c.fill_cuda(
+                args[0], args[2], args[3], e_ex, x_in, L, plan=red_f),
         }
+        old_route = {"blocked_compose": "cta", "blocked_propagate": "cta",
+                     "blocked_fill": "reduce"}
         new_route = {"blocked_compose": x2c.compose_plan(B, G, W, L)["route"],
-                     "blocked_propagate": x2c.propagate_plan(B, G, W)["route"]}
+                     "blocked_propagate": x2c.propagate_plan(B, G, W)["route"],
+                     "blocked_fill": x2c.fill_plan(B, G, W, L)["route"]}
         fns = {
             "blocked_compose": (
                 lambda: x2c.compose_cuda(args[0], args[2], args[3], e_ex, L),
@@ -1614,15 +1633,28 @@ def main() -> int:
             out[name] = {"ms": (ka + kb) / 2, "plain_ms": (pa + pb) / 2,
                          "bound_ms": max(t_b, t_o),
                          "bound_by": "bytes" if t_b >= t_o else "operations"}
-            turns = ""
-            if name in cta:
-                ca = time_ms(cta[name], 10)
-                na, nb2 = time_ms(k_fn, 10), time_ms(k_fn, 10)
-                cb = time_ms(cta[name], 10)
-                out[name].update(plan_route=new_route[name], cta_ms=(ca + cb) / 2,
-                                 turns_ms=[ca, na, nb2, cb])
-                turns = (f"; in turns with route cta (cta, {new_route[name]}, "
-                         f"{new_route[name]}, cta): {ca} / {na} / {nb2} / {cb} ms")
+            ca = time_ms(first[name], 10)
+            na, nb2 = time_ms(k_fn, 10), time_ms(k_fn, 10)
+            cb = time_ms(first[name], 10)
+            old, new = old_route[name], new_route[name]
+            out[name].update({"plan_route": new, f"{old}_ms": (ca + cb) / 2,
+                              "turns_ms": [ca, na, nb2, cb]})
+            turns = (f"; in turns with route {old} ({old}, {new}, {new}, "
+                     f"{old}): {ca} / {na} / {nb2} / {cb} ms")
+            if name == "blocked_fill":
+                # Replayed from CUDA graphs (20 launches a graph): device
+                # time without the host's launches; the chain's ns a step.
+                g = [graph_ms(f, 10, copies=20)
+                     for f in (first[name], k_fn, k_fn, first[name])]
+                out[name]["graph_turns_ms"] = g
+                out[name]["chain"] = {
+                    "steps": L, "ns_a_step": (g[1] + g[2]) / 2 * 1e6 / L,
+                    f"{old}_ns_a_step": (g[0] + g[3]) / 2 * 1e6 / L}
+                turns += (f"; from CUDA graphs ({old}, {new}, {new}, {old}): "
+                          f"{g[0]} / {g[1]} / {g[2]} / {g[3]} ms, "
+                          f"{out[name]['chain']['ns_a_step']} ns a step of "
+                          f"{L} ({old} "
+                          f"{out[name]['chain'][f'{old}_ns_a_step']})")
             log(f"{name} at {what} B={B} V={V} W={W} L={L}: kernel {ka} / {kb} "
                 f"ms, plain PyTorch {pa} / {pb} ms, bound {max(t_b, t_o)} ms "
                 f"(bytes {nb_} -> {t_b} ms, int32 ops {ops} -> {t_o} ms)"
@@ -1640,11 +1672,22 @@ def main() -> int:
         dpb._blocked_L(bargs[0].shape[1]))
     sv_a = time_ms(sv, 10)
     sv_b = time_ms(sv, 10)
+    # The Kleene loop as `blocked` runs it on this batch: its solves, each
+    # behind a host check (the narrow-band routing's number).
+    kl = lambda: dpb.dp_scores_blocked(*bargs, L=dpb._blocked_L(
+        bargs[0].shape[1]))
+    before = x2c.launches["blocked_fill"]
+    kl()
+    kl_solves = x2c.launches["blocked_fill"] - before
+    kl_a = time_ms(kl, 10)
+    kl_b = time_ms(kl, 10)
     b1_b = time_ms(lambda: dp_cuda.dp_scores_cuda(*bargs), 20)
     log(f"X2 solve at the bench batch {tuple(bench['_dims'])}: the three "
         f"kernels {x2_bench['solve']['ms']} ms summed, {sv_a} / {sv_b} ms "
-        f"as one solve (bound {x2_bench['solve']['bound_ms']} ms); B1 "
-        f"{b1_a} / {b1_b} ms on the same batch [{card}]")
+        f"as one solve (bound {x2_bench['solve']['bound_ms']} ms); the "
+        f"Kleene loop ({kl_solves} solves, a host check after each) "
+        f"{kl_a} / {kl_b} ms; B1 {b1_a} / {b1_b} ms on the same batch "
+        f"[{card}]")
     x2_over = x2_times(oargs, f"the oversize target (n={on})")
     log(f"X2 solve at the oversize target: {x2_over['solve']['ms']} ms "
         f"summed (bound {x2_over['solve']['bound_ms']} ms) [{card}]")
@@ -1653,21 +1696,23 @@ def main() -> int:
     def x2_zero() -> None:
         for k in X2:
             x2c.launches[k] = 0
-        for counts in (x2c.compose_routes, x2c.propagate_routes):
+        for counts in (x2c.compose_routes, x2c.propagate_routes,
+                       x2c.fill_routes):
             for k in counts:
                 counts[k] = 0
         x2c.route_widths.clear()
         dp_cuda.launches = 0
 
     def x2_routes_new(what) -> dict:
-        """Fails unless every compose and propagate at W in {16, 32} took
-        the new route in the run just ended; the run's counts by (kernel,
-        route, W)."""
+        """Fails unless every compose, propagate and fill at W in {16, 32}
+        took the new route in the run just ended, and each of the three
+        launched there; the run's counts by (kernel, route, W)."""
         old = {k: n for k, n in x2c.route_widths.items()
-               if k[1] == "cta" and k[2] in (16, 32)}
-        new = sum(n for k, n in x2c.route_widths.items()
-                  if k[1] in ("column", "warp") and k[2] in (16, 32))
-        if old or not new:
+               if k[1] in ("cta", "reduce") and k[2] in (16, 32)}
+        new = [sum(n for k, n in x2c.route_widths.items()
+                   if k[0] == kn and k[1] in ("column", "warp", "lane")
+                   and k[2] in (16, 32)) for kn in X2]
+        if old or not all(new):
             raise SystemExit(f"chip_smoke: {what}: X2 at W in (16, 32) not on "
                              f"the new routes ({x2c.route_widths})")
         return dict(x2c.route_widths)
@@ -1870,14 +1915,17 @@ def main() -> int:
         # No one PyTorch call computes a max-plus solve.
         "library_ms": None,
         "oversize_call": x2_over[name],
-        **({"plan_route": x2_bench[name]["plan_route"],
-            "cta_ms": x2_bench[name]["cta_ms"],
-            "launches_by_route": {
-                f"{r}/W={w}": colshard_routes.get((name, r, w), 0)
-                + blocked_routes.get((name, r, w), 0)
-                for (kn, r, w) in sorted({*colshard_routes, *blocked_routes})
-                if kn == name}}
-           if name in ("blocked_compose", "blocked_propagate") else {}),
+        "plan_route": x2_bench[name]["plan_route"],
+        **({"cta_ms": x2_bench[name]["cta_ms"]}
+           if name != "blocked_fill" else {
+               "reduce_ms": x2_bench[name]["reduce_ms"],
+               "graph_turns_ms": x2_bench[name]["graph_turns_ms"],
+               "chain": x2_over[name]["chain"]}),
+        "launches_by_route": {
+            f"{r}/W={w}": colshard_routes.get((name, r, w), 0)
+            + blocked_routes.get((name, r, w), 0)
+            for (kn, r, w) in sorted({*colshard_routes, *blocked_routes})
+            if kn == name},
     } for name, line, cs_line in (("blocked_compose", 121, 46),
                                   ("blocked_propagate", 137, 89),
                                   ("blocked_fill", 152, 116))]}),

@@ -90,13 +90,49 @@
 //    M_g copied by 4-byte cp.async one step ahead, two block barriers a
 //    step (the first design).
 //
-// Fill, blocked_fill_kernel, a warp per (target, block), 4 warps a CTA:
-// each block's raw inputs are copied into shared memory with coalesced
-// loads; the W-window of scores lives in a per-warp ring there; each
-// step a lane forms the edge scores of its d's (d = lane + 32k), the
-// warp takes the max by shuffles, and lane 0 puts the new score in the
-// slot of the dropped one. L dependent steps of a warp reduction a
-// block bound it; the block's L scores are written out at the end.
+// Fill, every block's L scores from its incoming boundary x_in: s[L + k]
+// = x_in[k] (k < W), then s[r] = max(SENT, e_exit2[r], max_d (esc2[r, d]
+// + s[r + 1 + d])) for r = L-1 .. 0. All blocks are independent, so it is
+// bound by the bytes of the band at the bench batch and by one block's
+// chain of L dependent steps at a few targets. Two routes, chosen by
+// `fill_plan`:
+//  - "lane", blocked_fill_lane_kernel<R> (every W): the push form of the
+//    recurrence. Once s[u] is final, every pending row r = u-1-d (d < W)
+//    takes the term esc2[r, d] + s[u]; so W rows are pending at a time,
+//    and each lives in one lane's register accumulator (a "slot"; slot k
+//    holds rows L-1-k, L-1-k-W, ..; R = ceil(W / 32) slots a lane past
+//    32). One step: one shuffle passes s[u] from the lane whose row u
+//    just got its last term, every slot adds its one term (a DPX
+//    __viaddmax_s32), and the finished slot takes row u-W, its
+//    accumulator starting at max(SENT, e_exit2) (the SENT clamp is one
+//    more term of the row's max, so the value passed on is already the
+//    clamped one; the row-to-row chain is never reassociated). The chain
+//    a step is the shuffle and one DPX: each slot's band entry, the
+//    step's node word (its multiplier and addend: 2, -cov or 0, -20) and
+//    the exit of the row a slot takes next are loaded from shared memory
+//    two steps ahead, and a step's score is kept in a register of one
+//    lane and stored after a chunk of steps, so that no store sits
+//    between a shuffle and the next loads. A block opens with the
+//    W(W+1)/2 terms of its first W rows from x_in, off the chain, on
+//    two accumulators a slot. At W <= 16, 32 / W blocks share a warp
+//    (groups of W lanes). A warp copies its blocks' band (one contiguous
+//    run) by 16-byte cp.async, lanes copying the words at a misaligned
+//    end, gathers the node words (at node min(gL + 1 + i, V - 1): cov
+//    and unsup of the last blocks' boundary slots are the last node's),
+//    and writes the scores out as 16-byte stores from shared memory.
+//    Warps share no barrier: other warps' copies overlap a warp's chain.
+//    What bounds it now (H100, `tools/blocked_ablate.py`): at one
+//    oversize target the chain, ~50 cycles a step (-D X2_PROF=1); at the
+//    bench batch the warps' instructions (~120 cycles a step of a warp
+//    among the others) and the copies, which overlap the steps little
+//    (-D X2_ABLATE=128: -23% without the band copies, 256: -42% without
+//    the steps).
+//  - "reduce", blocked_fill_kernel (forced plans): a warp per block, 4
+//    warps a CTA, the raw inputs copied by 2-byte loads, the W-window of
+//    scores in a ring in shared memory; each step a lane forms the edge
+//    scores of its d's (d = lane + 32k), the warp takes the max by five
+//    shuffles, and lane 0 puts the new score in the slot of the dropped
+//    one (the first design).
 
 #include <cstdint>
 #include <cuda_pipeline.h>
@@ -109,8 +145,9 @@
 // the compose (wrong); 16 no a rows formed in the compose (wrong); 32 the
 // add and the max of a term as two instructions, not one DPX; 64 no ring
 // refills past the first `depth` chunks, the consumer reading stale
-// slots (wrong). -D X2_PROF=1 clocks the propagate's phases
-// (`dagcon_x2_prof_read`).
+// slots (wrong); 128 no band copies in the fill's lane route (wrong); 256
+// no steps in the fill's lane route (wrong). -D X2_PROF=1 clocks the
+// propagate's phases and the fill's lane route (`dagcon_x2_prof_read`).
 #ifndef X2_ABLATE
 #define X2_ABLATE 0
 #endif
@@ -121,8 +158,11 @@
 // Cycles of target 0's warps in the propagate's phases: the consumer's
 // (the next slot's wait and row loads, the exit row and the rows, x
 // written and the count released), its steps, the producer's (the wait
-// on the count, the x_in writes, the refill's issue).
-__device__ unsigned long long x2_prof[8];
+// on the count, the x_in writes, the refill's issue); then (8-12) those
+// of the lane route's warp of block 0 in the fill: the copies and
+// gathers until the band is in, the start terms, the steps, the stores,
+// and the steps counted.
+__device__ unsigned long long x2_prof[16];
 #define X2_TICK(k)                                      \
   do {                                                  \
     const long long _n = clock64();                     \
@@ -168,6 +208,8 @@ constexpr int COL_MAX_THREADS = 512;
 constexpr int PROP_MAX_WARPS = 8;
 constexpr int PROP_MAX_DEPTH = 64;
 constexpr int PROP_MAX_CHUNK = 32;
+// Warps a CTA of the fill's lane route may have.
+constexpr int LANE_MAX_WARPS = 8;
 
 // One block's raw inputs in shared memory: the band rows [L][W] int16,
 // cov and unsup of nodes gL + 1 .. gL + L + W - 1 (clamped at V - 1: the
@@ -908,6 +950,248 @@ blocked_fill_kernel(const int16_t* __restrict__ win,
   for (int k = lane; k < L; k += 32) s2[rowbase + k] = outb[k];
 }
 
+// ---- route "lane" of the fill ----
+
+__host__ __device__ constexpr int r16(int n) { return (n + 15) / 16 * 16; }
+
+// Shared memory of one warp of the lane route, for `nb` consecutive
+// blocks, each part whole 16-byte words: their band rows (one run of
+// nb L W int16, placed at the run's own offset in a 16-byte word: up to
+// 14 bytes more), their node words (L + W int2 each, after 4 words of
+// padding), exits (L each, after lane_ex_pad(W) ints of padding), x_in
+// (W) and scores (nb L int32 at the output's offset in a 16-byte word).
+// The paddings take the loads of the steps' look-ahead past a block's
+// first row (node words down to index -3, exits down to -W - 2), whose
+// values no score uses.
+__host__ __device__ constexpr int lane_ex_pad(int W) { return (W + 7) / 4 * 4; }
+
+__host__ __device__ constexpr int lane_warp_bytes(int W, int L, int nb) {
+  return r16(nb * L * W * 2 + 14) + r16((nb * (L + W) + 4) * 8) +
+         r16((nb * L + lane_ex_pad(W)) * 4) + r16(nb * W * 4) +
+         r16(nb * L * 4 + 12);
+}
+
+// The lane route: R slots a lane (R = 1 for W <= 32, `nb` blocks a warp
+// in groups of W lanes; else one block a warp, slot k on lane k % 32,
+// register k / 32). See the file's head for the design.
+template <int R>
+__global__ void __launch_bounds__(LANE_MAX_WARPS * 32)
+blocked_fill_lane_kernel(const int16_t* __restrict__ win,
+                         const int16_t* __restrict__ cov,
+                         const uint8_t* __restrict__ uns,
+                         const int* __restrict__ eex,
+                         const int* __restrict__ x_in, int* __restrict__ s2,
+                         int B, int V, int W, int L, int nb) {
+  extern __shared__ __align__(16) unsigned char lsm[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int G = V / L;
+  const long long nblk = (long long)B * G;
+  const long long blk0 =
+      ((long long)blockIdx.x * (blockDim.x >> 5) + warp) * nb;
+  if (blk0 >= nblk) return;  // no barrier follows: the warp just leaves
+  const int nbk = (int)min((long long)nb, nblk - blk0);
+#if X2_PROF
+  long long _f = clock64();
+#define X2_FTICK(k)                                     \
+  do {                                                  \
+    const long long _n = clock64();                     \
+    if (blk0 == 0 && lane == 0) x2_prof[k] += _n - _f;  \
+    _f = _n;                                            \
+  } while (0)
+#else
+#define X2_FTICK(k) \
+  do {              \
+  } while (0)
+#endif
+  unsigned char* p = lsm + warp * lane_warp_bytes(W, L, nb);
+  int16_t* band_buf = reinterpret_cast<int16_t*>(p);
+  p += r16(nb * L * W * 2 + 14);
+  int2* nodes = reinterpret_cast<int2*>(p) + 4;  // [nb][L + W]
+  p += r16((nb * (L + W) + 4) * 8);
+  int* ex = reinterpret_cast<int*>(p) + lane_ex_pad(W);  // [nb][L]
+  p += r16((nb * L + lane_ex_pad(W)) * 4);
+  int* xs = reinterpret_cast<int*>(p);  // [nb][W]
+  p += r16(nb * W * 4);
+  int* out_buf = reinterpret_cast<int*>(p);
+
+  // The band: one run of nbk L W int16 from blk0's first row; the
+  // 16-byte words wholly inside it by cp.async, the rest by lanes.
+  const int16_t* wsrc = win + blk0 * L * W;
+  const int wn = nbk * L * W;
+  int16_t* band = band_buf + ((reinterpret_cast<uintptr_t>(wsrc) >> 1) & 7);
+  {
+    const int mis = (int)(reinterpret_cast<uintptr_t>(wsrc) & 15);
+    const int head = min(wn, ((16 - mis) & 15) / 2);
+    const int words = (wn - head) / 8;
+#if !(X2_ABLATE & 128)
+    for (int k = lane; k < words; k += 32) {
+      cp_async16(band + head + 8 * k, wsrc + head + 8 * k);
+    }
+    for (int k = lane; k < head; k += 32) band[k] = wsrc[k];
+    for (int k = head + 8 * words + lane; k < wn; k += 32) band[k] = wsrc[k];
+#endif
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  // Node words, exits and x_in, while the band is in flight.
+  for (int q = 0; q < nbk; ++q) {
+    const long long blk = blk0 + q;
+    const long long b = blk / G;
+    const int g = (int)(blk - b * G);
+    const int16_t* cb = cov + b * V;
+    const uint8_t* ub = uns + b * V;
+#pragma unroll 4
+    for (int i = lane; i < L + W; i += 32) {
+      const int t = min(g * L + 1 + i, V - 1);
+      const int c = __ldg(cb + t);
+      nodes[q * (L + W) + i] =
+          __ldg(ub + t) ? make_int2(0, PENALTY2) : make_int2(2, -c);
+    }
+  }
+  for (int k = lane; k < nbk * L; k += 32) ex[k] = __ldg(eex + blk0 * L + k);
+  for (int k = lane; k < nbk * W; k += 32) {
+    const int q = k / W;
+    xs[k] = __ldg(x_in + (blk0 + q) * (W + 1) + (k - q * W));
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncwarp();
+  X2_FTICK(8);
+
+  // This lane's group (block) and slots. Lanes past the warp's live
+  // groups read group 0's words and keep no row.
+  const int qg = R == 1 ? lane / W : 0;
+  const bool live = qg < nbk;
+  const int k0 = R == 1 ? lane - qg * W : lane;
+  const int q = live ? qg : 0;
+  const int16_t* bq = band + q * L * W;
+  const int2* nq = nodes + q * (L + W);
+  const int* eq = ex + q * L;
+  const int* xq = xs + q * W;
+  int* oq = out_buf + ((reinterpret_cast<uintptr_t>(s2 + blk0 * L) >> 2) & 3) +
+            q * L;
+  // esc2 of band slot (r, d): its node word is that of index r + d.
+  auto esc = [&](int r, int d) {
+    const int wc = bq[r * W + d];
+    const int2 nw = nq[r + d];
+    return wc < 0 ? SENT : nw.x * wc + nw.y;
+  };
+  int acc[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int k = k0 + 32 * j;
+    const int r = L - 1 - k;  // slot k's first row
+    acc[j] = SENT;
+    if (live && k < W && r >= 0) {
+      // Row r's terms from the boundary: d = k .. W-1, s[r+1+d] = x_in[d-k].
+      int a0 = max(SENT, eq[r]), a1 = SENT;
+      int d = k;
+#pragma unroll 4
+      for (; d + 1 < W; d += 2) {
+        a0 = addmax(esc(r, d), xq[d - k], a0);
+        a1 = addmax(esc(r, d + 1), xq[d + 1 - k], a1);
+      }
+      if (d < W) a0 = addmax(esc(r, d), xq[d - k], a0);
+      acc[j] = max(a0, a1);
+    }
+  }
+  X2_FTICK(9);
+
+  // Step t finishes row u = L-1-t, held by slot t % W of the group.
+  // The steps run in chunks of CW: W at R = 1 (so that the owner slot of
+  // chunk step tt is tt), else 32; lane `me` of the group (the warp)
+  // keeps chunk step me's score in a register, stored after the chunk,
+  // so that no store sits between a step's shuffle and the next steps'
+  // loads. Each slot's term at step t reads band word idx(t) = r (W - 1)
+  // + u - 1 of its row r: one less each step, and P(u) for the slot that
+  // takes row u - W (negative where that row is none: the loads clamp it
+  // to 0 and the term goes to an accumulator no score reads). A step's
+  // operands (those band words, the node word of u - 1, the exit of u -
+  // W) are loaded two steps ahead, so that a step's chain is its shuffle
+  // and one DPX.
+  const int src0 = R == 1 ? qg * W : 0;
+  const int CW = R == 1 ? W : 32;
+  const int me = R == 1 ? k0 : lane;
+  auto P = [&](int u) { return (u - W) * (W - 1) + u - 1; };
+  int ix[R], w0[R], w1[R];  // idx(t + 1); the band words of steps t, t + 1
+  int2 n0 = nq[L - 2], n1 = nq[L - 3];
+  int x0 = eq[L - 1 - W], x1 = eq[L - 2 - W];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int k = k0 + 32 * j;
+    const int i0 = k == 0 ? P(L - 1) : (L - 1 - k) * (W - 1) + L - 2;
+    ix[j] = k == 1 % W ? P(L - 2) : i0 - 1;
+    w0[j] = bq[max(i0, 0)];
+    w1[j] = bq[max(ix[j], 0)];
+  }
+  int o = 0, o2 = 2 % W;  // the owner slots of steps t and t + 2
+  for (int t0 = (X2_ABLATE & 256) ? L : 0; t0 < L; t0 += CW) {
+    const int n = min(CW, L - t0);
+    int rec = 0;
+#pragma unroll 4
+    for (int tt = 0; tt < n; ++tt) {
+      const int u = L - 1 - t0 - tt;
+      const int os = R == 1 ? tt : o;
+      int v = acc[0];
+#pragma unroll
+      for (int j = 1; j < R; ++j) v = (os >> 5) == j ? acc[j] : v;
+      const int s = __shfl_sync(FULL, v, src0 + (os & 31));
+      // Step t + 2's loads.
+      const int pu = P(u - 2);
+      int w2[R];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        ix[j] = k0 + 32 * j == o2 ? pu : ix[j] - 1;
+        w2[j] = bq[max(ix[j], 0)];
+      }
+      const int2 n2 = nq[u - 3];
+      const int x2 = eq[u - 2 - W];
+      // This step: the finished slot starts row u - W at max(SENT, its
+      // exit); every slot takes its term with s[u].
+      rec = me == tt ? s : rec;
+      const int ex0 = max(SENT, x0);
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int e = w0[j] < 0 ? SENT : n0.x * w0[j] + n0.y;
+        if (k0 + 32 * j == os) acc[j] = ex0;
+        acc[j] = addmax(e, s, acc[j]);
+        w0[j] = w1[j];
+        w1[j] = w2[j];
+      }
+      n0 = n1;
+      n1 = n2;
+      x0 = x1;
+      x1 = x2;
+      o = o + 1 == W ? 0 : o + 1;
+      o2 = o2 + 1 == W ? 0 : o2 + 1;
+    }
+    if (live && me < n) oq[L - 1 - t0 - me] = rec;
+  }
+  __syncwarp();
+  X2_FTICK(10);
+
+  // The scores: one run of nbk L int32 from s2 + blk0 L; whole 16-byte
+  // words by int4 stores, the ends by lanes.
+  {
+    int* dst = s2 + blk0 * L;
+    const int n = nbk * L;
+    const int mo = (int)((reinterpret_cast<uintptr_t>(dst) >> 2) & 3);
+    const int* src = out_buf + mo;
+    const int head = min(n, (4 - mo) & 3);
+    const int words = (n - head) / 4;
+    for (int k = lane; k < words; k += 32) {
+      reinterpret_cast<int4*>(dst + head)[k] =
+          reinterpret_cast<const int4*>(src + head)[k];
+    }
+    for (int k = lane; k < head; k += 32) dst[k] = src[k];
+    for (int k = head + 4 * words + lane; k < n; k += 32) dst[k] = src[k];
+  }
+  X2_FTICK(11);
+#if X2_PROF
+  if (blk0 == 0 && lane == 0) x2_prof[12] += L;
+#endif
+#undef X2_FTICK
+}
+
 int round_threads(int n) { return (n + 31) / 32 * 32; }
 
 int set_smem(const void* kernel, int smem) {
@@ -943,6 +1227,10 @@ int dagcon_blocked_propagate_smem(int W) {
 
 int dagcon_blocked_fill_smem(int W, int L) {
   return FILL_WARPS * fill_warp_bytes(W, L);
+}
+
+int dagcon_blocked_fill_lane_smem(int W, int L, int blocks, int warps) {
+  return warps * lane_warp_bytes(W, L, blocks);
 }
 
 int dagcon_blocked_column_smem(int W, int L, int blocks) {
@@ -1080,21 +1368,65 @@ int dagcon_blocked_propagate(const void* M, void* x_in, int B, int G, int W,
   return (int)cudaGetLastError();
 }
 
+// route 0 "reduce": blocks == 1, warps == FILL_WARPS, smem ==
+// dagcon_blocked_fill_smem; route 1 "lane": 1 <= blocks <= 32 / W (1 past
+// W = 32), 1 <= warps <= LANE_MAX_WARPS, smem ==
+// dagcon_blocked_fill_lane_smem. Any other plan is refused before a launch.
 int dagcon_blocked_fill(const void* win, const void* cov, const void* uns,
                         const void* eex, const void* x_in, void* s2, int B,
-                        int V, int W, int L, void* stream) {
+                        int V, int W, int L, int route, int blocks, int warps,
+                        int smem, void* stream) {
   if (bad_shape(B, V, W, L)) return (int)cudaErrorInvalidValue;
+  if (route == 0) {
+    if (blocks != 1 || warps != FILL_WARPS ||
+        smem != dagcon_blocked_fill_smem(W, L) || smem > SMEM_CAP) {
+      return (int)cudaErrorInvalidValue;
+    }
+  } else if (route == 1) {
+    if (blocks < 1 || blocks > (W <= 32 ? 32 / W : 1) || warps < 1 ||
+        warps > LANE_MAX_WARPS ||
+        smem != dagcon_blocked_fill_lane_smem(W, L, blocks, warps) ||
+        smem > SMEM_CAP) {
+      return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   if (B == 0) return 0;
-  const int smem = dagcon_blocked_fill_smem(W, L);
-  if (smem > SMEM_CAP) return (int)cudaErrorInvalidValue;
-  int e = set_smem((const void*)blocked_fill_kernel, smem);
-  if (e) return e;
-  const long long pairs = (long long)B * (V / L);
-  const int blocks = (int)((pairs + FILL_WARPS - 1) / FILL_WARPS);
-  blocked_fill_kernel<<<blocks, FILL_WARPS * 32, smem, (cudaStream_t)stream>>>(
-      (const int16_t*)win, (const int16_t*)cov, (const uint8_t*)uns,
-      (const int*)eex, (const int*)x_in, (int*)s2, B, V, W, L,
-      fill_warp_bytes(W, L));
+  const int16_t* w = (const int16_t*)win;
+  const int16_t* c = (const int16_t*)cov;
+  const uint8_t* u = (const uint8_t*)uns;
+  const int* e = (const int*)eex;
+  const int* xi = (const int*)x_in;
+  int* out = (int*)s2;
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long nblk = (long long)B * (V / L);
+  if (route == 0) {
+    int err = set_smem((const void*)blocked_fill_kernel, smem);
+    if (err) return err;
+    const int grid = (int)((nblk + FILL_WARPS - 1) / FILL_WARPS);
+    blocked_fill_kernel<<<grid, FILL_WARPS * 32, smem, st>>>(
+        w, c, u, e, xi, out, B, V, W, L, fill_warp_bytes(W, L));
+    return (int)cudaGetLastError();
+  }
+  const long long nwarps = (nblk + blocks - 1) / blocks;
+  const int grid = (int)((nwarps + warps - 1) / warps);
+  const int R = W <= 32 ? 1 : W <= 64 ? 2 : 4;
+  const void* kern = R == 1   ? (const void*)blocked_fill_lane_kernel<1>
+                     : R == 2 ? (const void*)blocked_fill_lane_kernel<2>
+                              : (const void*)blocked_fill_lane_kernel<4>;
+  int err = set_smem(kern, smem);
+  if (err) return err;
+  if (R == 1) {
+    blocked_fill_lane_kernel<1><<<grid, warps * 32, smem, st>>>(
+        w, c, u, e, xi, out, B, V, W, L, blocks);
+  } else if (R == 2) {
+    blocked_fill_lane_kernel<2><<<grid, warps * 32, smem, st>>>(
+        w, c, u, e, xi, out, B, V, W, L, blocks);
+  } else {
+    blocked_fill_lane_kernel<4><<<grid, warps * 32, smem, st>>>(
+        w, c, u, e, xi, out, B, V, W, L, blocks);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1104,7 +1436,7 @@ int dagcon_x2_prof_read(unsigned long long* out) {
 }
 
 int dagcon_x2_prof_reset() {
-  unsigned long long z[8] = {0};
+  unsigned long long z[16] = {0};
   return (int)cudaMemcpyToSymbol(x2_prof, z, sizeof(z));
 }
 #endif

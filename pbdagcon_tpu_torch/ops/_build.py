@@ -141,8 +141,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             ("dagcon_blocked_compose", [vp] * 5 + [ci] * 8 + [vp]),
             # (M, x_in, B, G, W, route, warps, depth, chunk, smem, stream)
             ("dagcon_blocked_propagate", [vp] * 2 + [ci] * 8 + [vp]),
-            # (win, cov, unsup, eex, x_in, s2, B, V, W, L, stream)
-            ("dagcon_blocked_fill", [vp] * 6 + [ci] * 4 + [vp]),
+            # (win, cov, unsup, eex, x_in, s2, B, V, W, L, route, blocks,
+            # warps, smem, stream)
+            ("dagcon_blocked_fill", [vp] * 6 + [ci] * 8 + [vp]),
         ):
             getattr(lib, fn).restype = ci
             getattr(lib, fn).argtypes = argtypes

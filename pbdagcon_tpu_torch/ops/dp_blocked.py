@@ -358,6 +358,151 @@ def propagate_ring_model(M: torch.Tensor, plan: dict | None = None,
     return x_in.to(M.device)
 
 
+def fill_lane_model(a: torch.Tensor, x_in: torch.Tensor,
+                    plan: dict | None = None, band=None) -> torch.Tensor:
+    """`_fill` as the fill's "lane" route computes it (the CPU model of
+    `blocked_fill_lane_kernel<R>`), integer for integer, vectorised over
+    the lanes of every warp. Warp w holds blocks w * nb + q (nb =
+    `plan["blocks"]`; `fill_plan`'s own plan where None): at W <= 32 in
+    groups of W lanes (q = lane // W, slot k = lane % W; lanes of a group
+    past the warp's blocks keep no row), past 32 one block with slot k on
+    lane k % 32, register k // 32 (R = ceil(W / 32) slots a lane). Slot k
+    starts with row L-1-k: its accumulator starts at max(SENT, exit)
+    (the clamp as one more term of the row's max) and takes the row's
+    terms from x_in (d = k .. W-1) on two accumulators (d - k even, odd).
+    Step t (u = L-1-t) reads s[u] from the lane of slot t % W of the
+    group (the model asserts that slot holds row u); the slot that holds
+    row u then takes row u - W (starting at max(SENT, exit)), and every
+    slot with a row r adds esc2[r, u-1-r] + s[u]. The steps run in chunks
+    of CW (W at W <= 32, else 32): lane `me` (k at W <= 32, else the
+    lane) keeps the score of chunk step me and writes it out after the
+    chunk. The kernel reads slot k's band word at an index it keeps one
+    less each step and sets to P(u) = (u - W)(W - 1) + u - 1 where the
+    slot takes row u - W; the model keeps it too and asserts it is r (W
+    - 1) + u - 1 for the slot's row r. The model asserts that every
+    (block, slot) has one lane and every row gets its W terms. With
+    `band` (win_count, cov, unsup of the batch), each term is formed as
+    the kernel forms it, from the raw band and the node word (2, -cov or
+    0, -20) of node min(gL + 1 + r + d, V - 1) (the clamped index of the
+    last blocks), not from `a`'s esc2 columns; `a` then gives only the
+    exits."""
+    from pbdagcon_tpu_torch.ops import dp_blocked_cuda as C
+
+    B, G, L, Wp = a.shape
+    W = Wp - 1
+    if plan is None:
+        plan = C.fill_plan(B, G, W, L)
+    if plan["route"] != "lane":
+        raise ValueError(f"not a lane-route plan: {plan}")
+    nb, R = plan["blocks"], C.lane_rows(W)
+    if not 1 <= nb <= C.lane_max_blocks(W):
+        raise ValueError(f"{nb} blocks a warp do not fit W={W}")
+    dev = a.device
+    nblk = B * G
+    nwarps = -(-nblk // nb)
+    af = a.cpu().reshape(nblk, L, Wp)
+    ex = af[:, :, W]
+    xs = x_in.cpu().reshape(nblk, Wp)[:, :W]
+    if band is None:
+        def esc(blk, r, d):
+            return af[blk, r, d]
+    else:
+        win, cov, unsup = (t.cpu() for t in band)
+        wq = win.to(torch.int32).reshape(nblk, L, W)
+        node = (torch.arange(G)[:, None] * L + 1
+                + torch.arange(L + W)[None, :]).clamp_max(G * L - 1)
+        cq = cov.to(torch.int32)[:, node].reshape(nblk, L + W)
+        uq = unsup.to(torch.bool)[:, node].reshape(nblk, L + W)
+        mul = torch.where(uq, 0, 2).to(torch.int32)
+        add = torch.where(uq, torch.tensor(_PENALTY2, dtype=torch.int32), -cq)
+
+        def esc(blk, r, d):
+            wc = wq[blk, r, d]
+            i = r + d
+            return torch.where(wc < 0, torch.tensor(SENT, dtype=torch.int32),
+                               mul[blk, i] * wc + add[blk, i])
+
+    none = -(1 << 30)
+    sent = torch.tensor(SENT, dtype=torch.int32)
+    lane = torch.arange(32)
+    if R == 1:
+        qg, k = lane // W, (lane % W)[:, None]
+    else:
+        qg, k = torch.zeros(32, dtype=torch.int64), (lane[:, None]
+                                                     + 32 * torch.arange(R))
+    blk = torch.arange(nwarps)[:, None, None] * nb + qg[None, :, None]
+    live = (qg < nb)[None, :, None] & (blk < nblk)  # [nw, 32, 1]
+    k = k.expand(32, R)[None].expand(nwarps, 32, R)
+    blk = blk.expand(nwarps, 32, R)
+    owned = live & (k < W)
+    cover = torch.zeros(nblk * W, dtype=torch.int64)
+    cover.index_add_(0, (blk * W + k)[owned], torch.ones(int(owned.sum()),
+                                                         dtype=torch.int64))
+    if not bool((cover == 1).all()):
+        raise AssertionError("the packing does not give every slot one lane")
+    bs = torch.where(owned, blk, 0)
+    nterm = torch.zeros(nblk * L, dtype=torch.int64)
+
+    def count(has, rows) -> None:
+        nterm.index_add_(0, (bs * L + rows)[has], torch.ones(int(has.sum()),
+                                                             dtype=torch.int64))
+
+    cur = torch.where(owned & (L - 1 - k >= 0), L - 1 - k, none)
+    has = cur >= 0
+    rs = cur.clamp_min(0)
+    acc0 = torch.maximum(ex[bs, rs], sent)
+    acc1 = torch.full_like(acc0, SENT)
+    for d in range(W):
+        use = has & (k <= d)
+        term = (esc(bs, rs, torch.full_like(rs, d))
+                + xs[bs, (d - k).clamp_min(0)])
+        even = (d - k) % 2 == 0
+        acc0 = torch.where(use & even, torch.maximum(acc0, term), acc0)
+        acc1 = torch.where(use & ~even, torch.maximum(acc1, term), acc1)
+        count(use, rs)
+    acc = torch.where(has, torch.maximum(acc0, acc1), sent)
+
+    out = torch.full((nblk, L), (1 << 30) + 7, dtype=torch.int32)
+    src0 = qg * W if R == 1 else qg
+    wi = torch.arange(nwarps)[:, None]
+    cw = W if R == 1 else 32
+    me = (lane % W if R == 1 else lane)[None, :].expand(nwarps, 32)
+    rec = torch.zeros((nwarps, 32), dtype=torch.int32)
+    ix = (L - 1 - k) * (W - 1) + L - 1
+    for t in range(L):
+        u, o, tt = L - 1 - t, t % W, t % cw
+        src = (src0 + o % 32) % 32  # the shuffle's source lane
+        held = cur[wi, src[None, :], o // 32]
+        if not bool((held[live[..., 0]] == u).all()):
+            raise AssertionError(f"step {t}: the source slot lacks row {u}")
+        s = acc[wi, src[None, :], o // 32][..., None].expand(nwarps, 32, R)
+        own = cur == u
+        if int(own.sum()) != int((live[..., 0].sum(1) // W
+                                  if R == 1 else live[:, 0, 0]).sum()):
+            raise AssertionError(f"step {t}: not one owner a block")
+        rec = torch.where(me == tt, s[..., 0], rec)
+        nr = u - W
+        cur = torch.where(own, nr if nr >= 0 else none, cur)
+        acc = torch.where(own, torch.maximum(ex[bs, max(nr, 0)], sent), acc)
+        has = cur >= 0
+        rs = cur.clamp_min(0)
+        ix = torch.where(own, (u - W) * (W - 1) + u - 1, ix - 1)
+        if not bool((ix == rs * (W - 1) + u - 1)[has].all()):
+            raise AssertionError(f"step {t}: a band index is not its row's")
+        term = esc(bs, rs, (u - 1 - rs).clamp(0, W - 1)) + s
+        acc = torch.where(has, torch.maximum(acc, term), acc)
+        count(has, rs)
+        if tt == cw - 1 or t == L - 1:  # the chunk's scores
+            t0 = t - tt
+            put = live[..., 0] & (me <= tt)
+            out[bs[..., 0][put], (L - 1 - t0 - me)[put]] = rec[put]
+    if not bool((out != (1 << 30) + 7).all()):
+        raise AssertionError("a score was never written")
+    if not bool((nterm == W).all()):
+        raise AssertionError("a row did not get its W terms")
+    return out.view(B, G * L).to(dev)
+
+
 def _solve_band(esc2: torch.Tensor, e_exit2: torch.Tensor, L: int = 64):
     """Plain PyTorch version of the banded solve: half-unit scores
     [B, V] int32 (sentinel-contaminated where unreachable), the same

@@ -17,13 +17,17 @@ COLUMN_WIDTHS, L a multiple of W) wherever it fits, else "cta" (a CTA
 per block, the first design). The propagate has two, chosen by
 `propagate_plan`: "warp" (a producer and a consumer warp per target, M
 streamed through a ring of shared-memory slots of `chunk` matrices) for
-every W, and "cta" (a CTA per target) only where a plan forces it. Each
-C entry checks its plan and refuses one it does not take.
+every W, and "cta" (a CTA per target) only where a plan forces it. The
+fill has two, chosen by `fill_plan`: "lane" (a lane per pending row, the
+newest score passed by one shuffle; `blocks` blocks a warp at W <= 16)
+for every W, and "reduce" (a warp per block, a warp reduction a step)
+only where a plan forces it. Each C entry checks its plan and refuses
+one it does not take.
 
 `launches` counts each kernel's launches by name ("blocked_compose",
-"blocked_propagate", "blocked_fill"); `compose_routes` and
-`propagate_routes` count the two kernels' launches by route, and
-`route_widths` by (kernel, route, W).
+"blocked_propagate", "blocked_fill"); `compose_routes`,
+`propagate_routes` and `fill_routes` count the three kernels' launches
+by route, and `route_widths` by (kernel, route, W).
 """
 
 from __future__ import annotations
@@ -35,10 +39,10 @@ import torch
 from pbdagcon_tpu_torch.ops import _build
 
 launches = {"blocked_compose": 0, "blocked_propagate": 0, "blocked_fill": 0}
-# The compose's and the propagate's launches by route, and both by
-# (kernel, route, W).
+# Each kernel's launches by route, and all three by (kernel, route, W).
 compose_routes = {"cta": 0, "column": 0}
 propagate_routes = {"cta": 0, "warp": 0}
+fill_routes = {"reduce": 0, "lane": 0}
 route_widths: dict[tuple[str, str, int], int] = {}
 
 MAX_W = 128
@@ -49,6 +53,7 @@ SMS = 132
 
 COMPOSE_ROUTES = {"cta": 0, "column": 1}
 PROPAGATE_ROUTES = {"cta": 0, "warp": 1}
+FILL_ROUTES = {"reduce": 0, "lane": 1}
 # The column route's widths (the kernel's template instances) and its
 # limits: threads a CTA, blocks a CTA, and the shared memory an unforced
 # plan gives a CTA: small CTAs, many an SM, so that one CTA's copies
@@ -67,6 +72,13 @@ PROP_MAX_CHUNK = 32
 PROP_CHUNK = 8
 PROP_MAX_DEPTH = 64
 PROP_DEPTH = 4
+# The fill's routes: warps a CTA of "reduce" (the kernel file's
+# FILL_WARPS); of "lane", at most LANE_WARPS in an unforced plan (the
+# kernel takes 8), each with at most LANE_WARP_TARGET bytes of shared
+# memory where it packs several blocks.
+FILL_WARPS = 4
+LANE_WARPS = 4
+LANE_WARP_TARGET = 32 * 1024
 
 
 def _staged_bytes(W: int, L: int) -> int:
@@ -83,9 +95,38 @@ def compose_smem(W: int, L: int) -> int:
 
 
 def fill_smem(W: int, L: int) -> int:
-    """Four warps' window rings, scores and staged blocks
-    (`dagcon_blocked_fill_smem`)."""
-    return 4 * (-(-((W + L) * 4 + _staged_bytes(W, L)) // 16) * 16)
+    """Four warps' window rings, scores and staged blocks: the "reduce"
+    route's CTA (`dagcon_blocked_fill_smem`)."""
+    return FILL_WARPS * _r16((W + L) * 4 + _staged_bytes(W, L))
+
+
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def lane_rows(W: int) -> int:
+    """Slots (pending rows) a lane of the fill's lane route: the kernel's
+    template R."""
+    return 1 if W <= 32 else (2 if W <= 64 else 4)
+
+
+def lane_max_blocks(W: int) -> int:
+    """Blocks a warp of the lane route can hold: groups of W lanes up to
+    32, one block past it."""
+    return 32 // W if W <= 32 else 1
+
+
+def lane_warp_bytes(W: int, L: int, blocks: int) -> int:
+    """Shared memory of one warp of the lane route (the kernel file's
+    `lane_warp_bytes`): its blocks' band run (+ up to 14 bytes of
+    misalignment), node words (L + W int2 a block, + 4 of padding),
+    exits (+ W + 4 to W + 7 ints of padding), x_in and scores (+ 12
+    bytes of misalignment), each part whole 16-byte words."""
+    nb = blocks
+    ex_pad = (W + 7) // 4 * 4
+    return (_r16(nb * L * W * 2 + 14) + _r16((nb * (L + W) + 4) * 8)
+            + _r16((nb * L + ex_pad) * 4) + _r16(nb * W * 4)
+            + _r16(nb * L * 4 + 12))
 
 
 def _r32(n: int) -> int:
@@ -242,6 +283,54 @@ def _propagate_plan(B: int, G: int, W: int, route: str | None,
             "smem": smem}
 
 
+def fill_plan(B: int, G: int, W: int, L: int, route: str | None = None,
+              blocks: int | None = None) -> dict:
+    """The fill's launch plan (`_fill_plan`, cached)."""
+    return dict(_fill_plan(B, G, W, L, route, blocks))
+
+
+@functools.lru_cache(maxsize=256)
+def _fill_plan(B: int, G: int, W: int, L: int, route: str | None,
+               blocks: int | None) -> dict:
+    """The fill's launch plan for B targets of G blocks of L rows at band
+    width W: "lane" unless `route="reduce"` forces the first design.
+    `blocks` (blocks a warp of the lane route: up to 32 // W at W <= 32,
+    else 1) overrides the packing, for the tests and
+    `tools/blocked_ablate.py`, and raises ValueError where it does not
+    fit. An unforced plan packs as many blocks a warp as fit
+    LANE_WARP_TARGET, and takes up to LANE_WARPS warps a CTA where the
+    warps still make two CTAs an SM. Keys: route, blocks (1 on
+    "reduce"), warps (a CTA), smem."""
+    if route not in (None, *FILL_ROUTES):
+        raise ValueError(f"unknown fill route {route!r}")
+    if not (1 <= W <= MAX_W and 1 <= L <= MAX_L and G >= 1 and B >= 0):
+        raise ValueError(f"no fill for B={B}, G={G}, W={W}, L={L}")
+    if route == "reduce":
+        if blocks not in (None, 1):
+            raise ValueError("the reduce route takes one block a warp")
+        if fill_smem(W, L) > MAX_SMEM:
+            raise ValueError(f"W={W}, L={L} outgrow one CTA's shared memory")
+        return {"route": "reduce", "blocks": 1, "warps": FILL_WARPS,
+                "smem": fill_smem(W, L)}
+    top = lane_max_blocks(W)
+    if blocks is None:
+        blocks = top
+        while blocks > 1 and lane_warp_bytes(W, L, blocks) > LANE_WARP_TARGET:
+            blocks -= 1
+    if not 1 <= blocks <= top:
+        raise ValueError(f"{blocks} blocks a warp do not fit the lane route "
+                         f"at W={W} (1 to {top})")
+    nwarps = -(-B * G // blocks)
+    warps = max(1, min(LANE_WARPS, nwarps // (2 * SMS)))
+    while warps > 1 and warps * lane_warp_bytes(W, L, blocks) > MAX_SMEM:
+        warps -= 1
+    smem = warps * lane_warp_bytes(W, L, blocks)
+    if smem > MAX_SMEM:
+        raise ValueError(f"{blocks} blocks a warp outgrow one CTA's shared "
+                         f"memory at W={W}, L={L}")
+    return {"route": "lane", "blocks": blocks, "warps": warps, "smem": smem}
+
+
 def _count(kernel: str, routes: dict, route: str, W: int) -> None:
     launches[kernel] += 1
     routes[route] += 1
@@ -340,25 +429,31 @@ def propagate_cuda(M: torch.Tensor, plan: dict | None = None) -> torch.Tensor:
     return x_in
 
 
-def fill_cuda(win_count, cov, unsup, e_ex2, x_in, L: int) -> torch.Tensor:
+def fill_cuda(win_count, cov, unsup, e_ex2, x_in, L: int,
+              plan: dict | None = None) -> torch.Tensor:
     """Half-unit scores s2 [B, V] int32 of every block's interior from
-    its incoming boundary x_in [B, V // L, W + 1]."""
+    its incoming boundary x_in [B, V // L, W + 1], on the route of `plan`
+    (`fill_plan`; made here when None)."""
     B, V, W = _check_band(win_count, cov, unsup, e_ex2, L)
     device = win_count.device
     _check(x_in, "x_in", (torch.int32,), (B, V // L, W + 1), device)
+    if plan is None:
+        plan = fill_plan(B, V // L, W, L)
+    if plan.get("route") not in FILL_ROUTES:
+        raise ValueError(f"not a fill plan: {plan}")
     lib = _build.load("dp_blocked")
     s2 = torch.empty((B, V), dtype=torch.int32, device=device)
-    if B == 0:
-        return s2
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.dagcon_blocked_fill(
             win_count.data_ptr(), cov.data_ptr(), unsup.data_ptr(),
             e_ex2.data_ptr(), x_in.data_ptr(), s2.data_ptr(), B, V, W, L,
-            stream,
+            FILL_ROUTES[plan["route"]], plan["blocks"], plan["warps"],
+            plan["smem"], stream,
         )
     _build.check(lib, rc, "blocked_fill launch")
-    launches["blocked_fill"] += 1
+    if B:
+        _count("blocked_fill", fill_routes, plan["route"], W)
     return s2
 
 

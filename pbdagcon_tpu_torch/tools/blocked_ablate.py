@@ -1,5 +1,5 @@
-"""Kernel X2's compose and propagate (`csrc/dp_blocked.cu`) on their
-routes, in turns, at the bench batch's shape and at one oversize
+"""Kernel X2's compose, propagate and fill (`csrc/dp_blocked.cu`) on
+their routes, in turns, at the bench batch's shape and at one oversize
 target's.
 
     python -m pbdagcon_tpu_torch.tools.blocked_ablate [--reps N]
@@ -9,20 +9,24 @@ V=5632, W=16, K=32, L=64) and one oversize target (B=1, V=31360, W=32,
 L=128, G=245), here filled by `ops/dp.py::random_batch` from the seed,
 so no native engine is needed (no kernel's time depends on the band's
 values). Each route is first held integer-equal to its plain phase
-(`_compose`, `_propagate`) on the card (exit 1 if not). Then, each line
-in the order old, new, new, old: the compose's "cta" and "column"
-routes, and the propagate's "cta" and "warp" routes, in device ms a
-launch (an eager loop of launches between CUDA events), beside the
-bound (the larger of the bytes read and written once at 3.35 TB/s and
-the int32 operations, an add and a max a term, at 64 x 132 x 1.98 GHz);
-then the new routes under forced plans (the compose's blocks a CTA, the
-propagate's matrices a ring slot, slots and targets a CTA) against the
-unforced plan; builds with parts switched off (`X2_ABLATE` bits; their
-outputs may be wrong, only their times count); the propagate's phase
-clocks (-D X2_PROF=1: cycles a step of target 0's consumer warp and its
-producer); and the three kernels of a solve on the new routes against
-the first design's. ptxas' registers and spills of the build come
-first. Exit 2 without a card.
+(`_compose`, `_propagate`, `_fill`) on the card (exit 1 if not). Then,
+each line in the order old, new, new, old: the compose's "cta" and
+"column" routes, the propagate's "cta" and "warp" routes and the fill's
+"reduce" and "lane" routes, in device ms a launch (an eager loop of
+launches between CUDA events), beside the bound (the larger of the
+bytes read and written once at 3.35 TB/s and the int32 operations, an
+add and a max a term, at 64 x 132 x 1.98 GHz), and for the propagate
+and the fill the ns a step of their chains (G and L steps); then the
+new routes under forced plans (the compose's blocks a CTA, the
+propagate's matrices a ring slot, slots and targets a CTA, the fill's
+blocks a warp) against the unforced plan; builds with parts switched
+off (`X2_ABLATE` bits; their outputs may be wrong, only their times
+count); the phase clocks (-D X2_PROF=1: cycles a step of target 0's
+consumer warp and its producer in the propagate; cycles of the fill's
+warp of block 0 in its copies, start terms, steps and stores); and the
+three kernels of a solve on the new routes against the first design's.
+ptxas' registers and spills of the build come first. Exit 2 without a
+card.
 """
 
 from __future__ import annotations
@@ -50,6 +54,9 @@ BUILDS = {
     "X2_ABLATE=26": "the compose's copies alone (wrong)",
     "X2_ABLATE=32": "add and max as two instructions, not one DPX",
     "X2_ABLATE=64": "no ring refills, stale slots read (wrong)",
+    "X2_ABLATE=128": "no band copies in the fill's lane route (wrong)",
+    "X2_ABLATE=256": "no steps in the fill's lane route (wrong)",
+    "X2_ABLATE=384": "the fill's gathers, start terms and stores alone (wrong)",
 }
 PROF = "X2_PROF=1"
 
@@ -100,12 +107,16 @@ def _shape(label, B, V, W, K, reps, card) -> int:
     a = dpb._rows(dpb._esc2_band(win, cov, uns), e_ex, L)
     M_p = dpb._compose(a)
     x_p = dpb._propagate(M_p)
+    s_p = dpb._fill(a, x_p)
 
     def compose(plan):
         return lambda: x2c.compose_cuda(win, cov, uns, e_ex, L, plan=plan)
 
     def propagate(plan):
         return lambda: x2c.propagate_cuda(M_p, plan=plan)
+
+    def fill(plan):
+        return lambda: x2c.fill_cuda(win, cov, uns, e_ex, x_p, L, plan=plan)
 
     c_new, c_old = x2c.compose_plan(B, G, W, L), x2c.compose_plan(
         B, G, W, L, route="cta")
@@ -119,21 +130,31 @@ def _shape(label, B, V, W, K, reps, card) -> int:
         if not torch.equal(propagate(plan)(), x_p):
             print(f"blocked_ablate: propagate {plan} != _propagate ({label})")
             return 1
+    f_new, f_old = x2c.fill_plan(B, G, W, L), x2c.fill_plan(
+        B, G, W, L, route="reduce")
+    for plan in (f_new, f_old):
+        if not torch.equal(fill(plan)(), s_p):
+            print(f"blocked_ablate: fill {plan} != _fill ({label})")
+            return 1
     band = sum(x.numel() * x.element_size() for x in (win, cov, uns, e_ex))
     mb, xb = M_p.numel() * 4, x_p.numel() * 4
     print(f"{label} B={B} V={V} W={W} L={L} G={G}: compose plan {c_new}, "
-          f"propagate plan {p_new}; both routes integer-equal to the plain "
-          f"phases [{card}]", flush=True)
+          f"propagate plan {p_new}, fill plan {f_new}; both routes of each "
+          f"integer-equal to the plain phases [{card}]", flush=True)
     rows = (("blocked_compose", compose(c_old), compose(c_new),
              band + mb, 2 * Wp * Wp * B * V, "cta", "column"),
             ("blocked_propagate", propagate(p_old), propagate(p_new),
-             mb + xb, 2 * Wp * Wp * B * G, "cta", "warp"))
+             mb + xb, 2 * Wp * Wp * B * G, "cta", "warp"),
+            ("blocked_fill", fill(f_old), fill(f_new), band + xb + B * V * 4,
+             2 * Wp * B * V, "reduce", "lane"))
     for name, old, new, nbytes, ops, r_old, r_new in rows:
         turns = [_time_ms(f, reps) for f in (old, new, new, old)]
         per_step = ""
-        if name == "blocked_propagate":
-            per_step = (f"; {r_new} {(turns[1] + turns[2]) / 2 * 1e6 / G:.1f} "
-                        f"ns a step of {G}")
+        steps = {"blocked_propagate": G, "blocked_fill": L}.get(name)
+        if steps:
+            per_step = (f"; {r_new} {(turns[1] + turns[2]) / 2 * 1e6 / steps:.1f}"
+                        f" ns a step of {steps}, {r_old} "
+                        f"{(turns[0] + turns[3]) / 2 * 1e6 / steps:.1f}")
         print(f"  {name} ms a launch ({r_old}, {r_new}, {r_new}, {r_old}): "
               f"{turns}; bound {_bound_ms(nbytes, ops)} ms (bytes {nbytes}, "
               f"int32 ops {ops}){per_step} [{card}]", flush=True)
@@ -163,6 +184,18 @@ def _shape(label, B, V, W, K, reps, card) -> int:
               f"{plan['chunk']}, depth {plan['depth']}): "
               f"{_time_ms(propagate(plan), reps)} ms against the plan's "
               f"{base} [{card}]", flush=True)
+    base = _time_ms(fill(f_new), reps)
+    for nb in (1, 2):
+        try:
+            plan = x2c.fill_plan(B, G, W, L, blocks=nb)
+        except ValueError:
+            continue
+        if not torch.equal(fill(plan)(), s_p):
+            print(f"blocked_ablate: fill {plan} != _fill ({label})")
+            return 1
+        print(f"  fill blocks={nb} (warps {plan['warps']}, smem "
+              f"{plan['smem']}): {_time_ms(fill(plan), reps)} ms against the "
+              f"plan's {base} [{card}]", flush=True)
     stream = torch.cuda.current_stream().cuda_stream
     for define in (*BUILDS, PROF):
         lib = _build.load("dp_blocked", (define,))
@@ -183,9 +216,18 @@ def _shape(label, B, V, W, K, reps, card) -> int:
             _build.check(lib, rc, "blocked_propagate launch")
             return x
 
+        def f_run():
+            s2 = torch.empty((B, V), dtype=torch.int32, device=win.device)
+            rc = lib.dagcon_blocked_fill(
+                win.data_ptr(), cov.data_ptr(), uns.data_ptr(), e_ex.data_ptr(),
+                x_p.data_ptr(), s2.data_ptr(), B, V, W, L, 1, f_new["blocks"],
+                f_new["warps"], f_new["smem"], stream)
+            _build.check(lib, rc, "blocked_fill launch")
+
         what = BUILDS.get(define, "the phase clocks")
         line = (f"  -D {define} ({what}): compose {_time_ms(c_run, reps)} ms, "
-                f"propagate {_time_ms(p_run, reps)} ms")
+                f"propagate {_time_ms(p_run, reps)} ms, fill "
+                f"{_time_ms(f_run, reps)} ms")
         if define == PROF:
             lib.dagcon_x2_prof_read.restype = ctypes.c_int
             lib.dagcon_x2_prof_read.argtypes = [ctypes.c_void_p]
@@ -193,8 +235,9 @@ def _shape(label, B, V, W, K, reps, card) -> int:
             torch.cuda.synchronize()
             lib.dagcon_x2_prof_reset()
             p_run()
+            f_run()
             torch.cuda.synchronize()
-            pr = np.zeros(8, dtype=np.uint64)
+            pr = np.zeros(16, dtype=np.uint64)
             rc = lib.dagcon_x2_prof_read(pr.ctypes.data)
             if rc:
                 raise RuntimeError(f"dagcon_x2_prof_read failed ({rc})")
@@ -204,17 +247,20 @@ def _shape(label, B, V, W, K, reps, card) -> int:
                      f"{pr[1] / n:.0f}, x written and released "
                      f"{pr[2] / n:.0f}; producer waiting {pr[3] / n:.0f}, "
                      f"writing x_in {pr[4] / n:.0f}, issuing {pr[6] / n:.0f} "
-                     f"({n} steps)")
+                     f"({n} steps); fill, cycles of block 0's warp: copies "
+                     f"and gathers {pr[8]}, start terms {pr[9]}, steps "
+                     f"{pr[10]} ({pr[10] / max(1, int(pr[12])):.1f} a step of "
+                     f"{pr[12]}), stores {pr[11]}")
         print(f"{line} [{card}]", flush=True)
 
-    def solve(cp, pp):
+    def solve(cp, pp, fp):
         def run():
             M = x2c.compose_cuda(win, cov, uns, e_ex, L, plan=cp)
             x_in = x2c.propagate_cuda(M, plan=pp)
-            return x2c.fill_cuda(win, cov, uns, e_ex, x_in, L)
+            return x2c.fill_cuda(win, cov, uns, e_ex, x_in, L, plan=fp)
         return run
 
-    old, new = solve(c_old, p_old), solve(c_new, p_new)
+    old, new = solve(c_old, p_old, f_old), solve(c_new, p_new, f_new)
     if not torch.equal(new(), old()):
         print(f"blocked_ablate: the solve's routes disagree ({label})")
         return 1

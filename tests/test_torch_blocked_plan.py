@@ -1,16 +1,21 @@
 """The new routes of kernel X2 on the CPU: the models of the compose's
 "column" route (`ops/dp_blocked.py::compose_column_model`: a thread a
 column, the column in per-thread registers renamed by the step, split
-accumulators, the CTA packing of the plan) and of the propagate's "warp"
+accumulators, the CTA packing of the plan), of the propagate's "warp"
 route (`propagate_ring_model`: the run of M staged in ring slots as a
 bulk-copied middle and lane-copied head and tail words, a row set a
-lane, split accumulators, the exit row over the lanes), integer-equal
-to the plain phases `_compose` and `_propagate`; the solve built from
-them through `_fill` integer-equal to the JAX package's `_solve_band` on
-its pileups, on random batches and on values at the sentinel; and the
-launch plans (`ops/dp_blocked_cuda.py::compose_plan`, `propagate_plan`).
-All comparisons are exact. The kernels themselves are held against the
-plain phases in tests/test_torch_cuda.py and chip_smoke.py phase 11."""
+lane, split accumulators, the exit row over the lanes) and of the fill's
+"lane" route (`fill_lane_model`: a lane per pending row, the newest
+score passed by a shuffle, blocks packed into a warp, the start terms
+from x_in, the clamp as the accumulator's start, the terms formed from
+the raw band at the clamped node index), integer-equal to the plain
+phases `_compose`, `_propagate` and `_fill`; the solve built from the
+three models integer-equal to the JAX package's `_solve_band` on its
+pileups, on random batches and on values at the sentinel; and the
+launch plans (`ops/dp_blocked_cuda.py::compose_plan`, `propagate_plan`,
+`fill_plan`). All comparisons are exact. The kernels themselves are
+held against the plain phases in tests/test_torch_cuda.py and
+chip_smoke.py phase 11."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,9 +32,11 @@ from test_torch_dp_blocked import PILEUPS, _lins
 BAND = ("win_count", "exit_count", "cov", "unsup")
 
 
-def _hold(batch: dict, L: int, plans=(None, None), bases=(0, 3)) -> None:
+def _hold(batch: dict, L: int, plans=(None, None, None), bases=(0, 3)
+          ) -> None:
     """The models against the plain phases, and the solve built from
-    them against the JAX package's `_solve_band`, on one batch."""
+    them (the fill's terms from the raw band) against the JAX package's
+    `_solve_band`, on one batch."""
     t = {k: torch.from_numpy(np.asarray(batch[k])) for k in BAND}
     esc2, ex2 = tbl._esc2_dense(*(t[k] for k in BAND))
     a = tbl._rows(esc2, ex2, L)
@@ -39,9 +46,13 @@ def _hold(batch: dict, L: int, plans=(None, None), bases=(0, 3)) -> None:
     x_in = tbl._propagate(M)
     for base in bases:
         assert torch.equal(tbl.propagate_ring_model(M, plans[1], base), x_in)
+    assert torch.equal(tbl.fill_lane_model(a, x_in, plans[2]),
+                       tbl._fill(a, x_in))
     je, jx = jbl._esc2_dense(*(jnp.asarray(batch[k]) for k in BAND))
     want = np.asarray(jbl._solve_band(je, jx, L=L))
-    got = tbl._fill(a, tbl.propagate_ring_model(M_model, plans[1]))
+    band = (t["win_count"], t["cov"], t["unsup"])
+    got = tbl.fill_lane_model(a, tbl.propagate_ring_model(M_model, plans[1]),
+                              plans[2], band)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -127,6 +138,9 @@ def test_models_refuse_the_other_routes_plans():
     with pytest.raises(ValueError):
         tbl.compose_column_model(a, C.compose_plan(1, 1, 16, 64, route="cta"))
     with pytest.raises(ValueError):
+        tbl.fill_lane_model(a, torch.zeros((1, 1, 17), dtype=torch.int32),
+                            C.fill_plan(1, 1, 16, 64, route="reduce"))
+    with pytest.raises(ValueError):
         tbl.propagate_ring_model(torch.zeros((1, 1, 17, 17), dtype=torch.int32),
                                  C.propagate_plan(1, 1, 16, route="cta"))
 
@@ -198,3 +212,135 @@ def test_propagate_plan_at_every_width():
         C.propagate_plan(8, 64, 128, warps=8, depth=8)
     with pytest.raises(ValueError):
         C.propagate_plan(1, 1, 16, route="ring")
+
+
+def _band_case(rng, B, G, L, W, none=0.3):
+    """A raw band (win_count with `none` of its slots -1, cov, unsup),
+    its exits and its a rows, as the solve forms them."""
+    V = G * L
+    win = rng.integers(0, 60, (B, V, W))
+    win = np.where(rng.random((B, V, W)) < none, -1, win)
+    t = {"win_count": torch.from_numpy(win.astype(np.int16)),
+         "cov": torch.from_numpy(rng.integers(0, 120, (B, V)).astype(np.int16)),
+         "unsup": torch.from_numpy(rng.random((B, V)) < 0.2)}
+    ex = np.where(rng.random((B, V)) < 0.5, tbl.SENT,
+                  rng.integers(-40, 40, (B, V)))
+    t["e_ex"] = torch.from_numpy(ex.astype(np.int32))
+    esc2 = tbl._esc2_band(t["win_count"], t["cov"], t["unsup"])
+    return t, tbl._rows(esc2, t["e_ex"], L)
+
+
+@pytest.mark.parametrize("W", [1, 16, 32, 33, 128])
+def test_fill_model_at_the_sentinel(W):
+    """No-edge slots (count < 0) beside large scores, and x_in at and
+    just above SENT: each no-edge term SENT + s[u] is a term of its row
+    (a sentinel-contaminated value above SENT where s[u] > 0), and the
+    model keeps it where `_fill` does, on the raw band too. Exits below
+    SENT on rows with no edge: the row's clamp to SENT decides them."""
+    rng = np.random.default_rng(500 + W)
+    B, G, L = 2, 2, 64
+    t, a = _band_case(rng, B, G, L, W, none=0.7)
+    # Rows with no edge and no exit: only their no-edge terms reach them.
+    bare = torch.from_numpy(rng.random((B, G * L)) < 0.3)
+    t["win_count"][bare] = -1
+    t["e_ex"][bare] = tbl.SENT
+    t["e_ex"] = torch.where(t["e_ex"] == tbl.SENT, t["e_ex"],
+                            t["e_ex"] + (1 << 26))  # large exits: large s
+    low = bare & torch.from_numpy(rng.random((B, G * L)) < 0.5)
+    t["e_ex"][low] = tbl.SENT - torch.from_numpy(
+        rng.integers(1, 1 << 20, int(low.sum())).astype(np.int32))
+    a = tbl._rows(tbl._esc2_band(t["win_count"], t["cov"], t["unsup"]),
+                  t["e_ex"], L)
+    raw = rng.integers(-(1 << 20), 1 << 27, (B, G, W + 1))
+    near = rng.random(raw.shape)
+    raw = np.where(near < 0.3, tbl.SENT, raw)
+    raw = np.where((near >= 0.3) & (near < 0.6),
+                   tbl.SENT + rng.integers(1, 64, raw.shape), raw)
+    x_in = torch.from_numpy(raw.astype(np.int32))
+    x_in[..., W] = 0
+    want = tbl._fill(a, x_in)
+    assert ((want > tbl.SENT) & (want < tbl._REAL_MIN)).any()
+    assert (want > 0).any()
+    assert torch.equal(tbl.fill_lane_model(a, x_in), want)
+    band = (t["win_count"], t["cov"], t["unsup"])
+    assert torch.equal(tbl.fill_lane_model(a, x_in, band=band), want)
+
+
+@pytest.mark.parametrize("W,G", [(16, 1), (32, 3), (128, 2), (128, 3)])
+def test_fill_model_clamps_the_last_blocks_node_index(W, G):
+    """The last blocks' boundary slots target nodes past V - 1: their
+    cov and unsup are node V - 1's (x_in there is whatever the propagate
+    gave, here random). The model, forming each term from the raw band,
+    equals `_fill` on the esc2 that `_esc2_band` clamps; with W = 128 at
+    L = 64 the clamp reaches the last two blocks."""
+    rng = np.random.default_rng(40 + W + G)
+    B, L = 2, 64
+    t, a = _band_case(rng, B, G, L, W, none=0.1)
+    t["cov"][:, -1] = 1000
+    t["unsup"][:, -1] = False
+    a = tbl._rows(tbl._esc2_band(t["win_count"], t["cov"], t["unsup"]),
+                  t["e_ex"], L)
+    x_in = torch.from_numpy(rng.integers(-500, 500, (B, G, W + 1)).astype(np.int32))
+    band = (t["win_count"], t["cov"], t["unsup"])
+    want = tbl._fill(a, x_in)
+    assert torch.equal(tbl.fill_lane_model(a, x_in, band=band), want)
+    # Node V - 1's cov reaches the scores: a band with another cov there
+    # gives other scores.
+    t["cov"][:, -1] = 0
+    other = tbl.fill_lane_model(a, x_in, band=(t["win_count"], t["cov"],
+                                                t["unsup"]))
+    assert not torch.equal(other, want)
+
+
+@pytest.mark.parametrize("W,blocks", [(16, 1), (16, 2), (8, 3), (5, 6),
+                                      (1, 1), (1, 7), (1, 32)])
+def test_fill_model_under_forced_packings(W, blocks):
+    """Every packing the plan can force gives every slot one lane and the
+    same scores, across warp and target edges (B * G not a multiple of
+    the blocks)."""
+    rng = np.random.default_rng(W * 100 + blocks)
+    B, G, L = 3, 5, 64
+    t, a = _band_case(rng, B, G, L, W)
+    x_in = tbl._propagate(tbl._compose(a))
+    plan = C.fill_plan(B, G, W, L, blocks=blocks)
+    assert plan["blocks"] == blocks
+    band = (t["win_count"], t["cov"], t["unsup"])
+    want = tbl._fill(a, x_in)
+    assert torch.equal(tbl.fill_lane_model(a, x_in, plan), want)
+    assert torch.equal(tbl.fill_lane_model(a, x_in, plan, band), want)
+
+
+@pytest.mark.parametrize("L", [64, 128])
+def test_fill_plan_at_every_width(L):
+    for W in range(1, 129):
+        for B, G in ((0, 3), (1, 1), (1, 245), (37, 11), (512, 88)):
+            plan = C.fill_plan(B, G, W, L)
+            assert plan["route"] == "lane"
+            nb, warps = plan["blocks"], plan["warps"]
+            assert 1 <= nb <= C.lane_max_blocks(W)
+            assert nb == C.lane_max_blocks(W) or C.lane_warp_bytes(
+                W, L, nb + 1) > C.LANE_WARP_TARGET
+            assert 1 <= warps <= C.LANE_WARPS
+            assert plan["smem"] == warps * C.lane_warp_bytes(W, L, nb)
+            assert plan["smem"] <= C.MAX_SMEM
+            # Two CTAs an SM where the warps allow it.
+            assert warps == 1 or -(-B * G // nb) >= 2 * C.SMS * warps
+            assert C.fill_plan(B, G, W, L, route="reduce") == {
+                "route": "reduce", "blocks": 1, "warps": C.FILL_WARPS,
+                "smem": C.fill_smem(W, L)}
+            for bad in (0, C.lane_max_blocks(W) + 1):
+                with pytest.raises(ValueError):
+                    C.fill_plan(B, G, W, L, blocks=bad)
+            with pytest.raises(ValueError):
+                C.fill_plan(B, G, W, L, route="reduce", blocks=2)
+    bench = C.fill_plan(512, 88, 16, 64)
+    assert (bench["blocks"], bench["warps"]) == (2, 4)
+    assert C.fill_plan(1, 245, 32, 128) == {
+        "route": "lane", "blocks": 1, "warps": 1,
+        "smem": C.lane_warp_bytes(32, 128, 1)}
+    for bad in (dict(route="warp"), dict(W=129), dict(L=0), dict(G=0),
+                dict(B=-1)):
+        args = {"B": 1, "G": 1, "W": 16, "L": L, **bad}
+        route = args.pop("route", None)
+        with pytest.raises(ValueError):
+            C.fill_plan(args["B"], args["G"], args["W"], args["L"], route=route)

@@ -966,9 +966,10 @@ def _offset_copy(t: torch.Tensor, k: int) -> torch.Tensor:
 @pytest.mark.parametrize("W", [16, 32, 64, 128])
 @pytest.mark.parametrize("V,K", [(704, 16), (8192, 0)])
 def test_blocked_routes_match_plain_phases(card, W, V, K):
-    """The compose's "column" and "cta" routes and the propagate's
-    "warp" and "cta" routes, each integer-equal to its plain phase and
-    to the other route; the band and M also off 16-byte boundaries."""
+    """The compose's "column" and "cta" routes, the propagate's "warp"
+    and "cta" routes and the fill's "lane" and "reduce" routes, each
+    integer-equal to its plain phase and to the other route; the band,
+    M and x_in also off 16-byte boundaries."""
     from pbdagcon_tpu_torch.ops import dp_blocked as tbl
     from pbdagcon_tpu_torch.ops import dp_blocked_cuda as C
 
@@ -1003,6 +1004,71 @@ def test_blocked_routes_match_plain_phases(card, W, V, K):
             x_in = C.propagate_cuda(_offset_copy(M_p, k), plan=plan)
             torch.cuda.synchronize()
             assert torch.equal(x_in, x_p), (plan, k)
+    s_p = tbl._fill(a, x_p)
+    plans = [C.fill_plan(B, G, W, L), C.fill_plan(B, G, W, L, route="reduce")]
+    assert plans[0]["route"] == "lane"
+    if W <= 16:
+        plans.append(C.fill_plan(B, G, W, L, blocks=1))
+    for plan in plans:
+        s2 = C.fill_cuda(win, cov, uns, e_ex, x_p, L, plan=plan)
+        s2_off = C.fill_cuda(_offset_copy(win, 3), cov, uns,
+                             _offset_copy(e_ex, 1), _offset_copy(x_p, 2), L,
+                             plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(s2, s_p), plan
+        assert torch.equal(s2_off, s_p), plan
+
+
+@pytest.mark.parametrize("B,G,W,L", [(0, 3, 16, 64), (3, 1, 32, 64),
+                                     (4, 3, 1, 64), (2, 2, 128, 64),
+                                     (2, 3, 128, 128), (5, 2, 1, 128),
+                                     (7, 3, 17, 128), (3, 2, 40, 64),
+                                     (1, 245, 32, 128)])
+def test_blocked_fill_on_random_band(card, B, G, W, L):
+    """Both fill routes on a random band and x_in (no-edge slots, a
+    third of them; x_in and exits at and just above SENT, and large;
+    exits below SENT on rows with no edge),
+    integer-equal to the plain phase, with every tensor at each of four
+    offsets off the 16-byte boundaries; B = 0 launches nothing."""
+    from pbdagcon_tpu_torch.ops import dp_blocked as tbl
+    from pbdagcon_tpu_torch.ops import dp_blocked_cuda as C
+
+    rng = np.random.default_rng(B * 1000 + G * 10 + W + L)
+    V = G * L
+    win = rng.integers(0, 200, (B, V, W))
+    win = np.where(rng.random(win.shape) < 0.33, -1, win)
+    win = torch.from_numpy(win.astype(np.int16)).to(card)
+    cov = torch.from_numpy(rng.integers(-50, 300, (B, V)).astype(np.int16)).to(card)
+    uns = torch.from_numpy(rng.random((B, V)) < 0.2).to(card)
+
+    def near_sent(shape, top):
+        raw = rng.integers(-(1 << 20), top, shape)
+        pick = rng.random(shape)
+        raw = np.where(pick < 0.25, tbl.SENT, raw)
+        raw = np.where((pick >= 0.25) & (pick < 0.5),
+                       tbl.SENT + rng.integers(1, 64, shape), raw)
+        return torch.from_numpy(raw.astype(np.int32)).to(card)
+
+    e_ex = near_sent((B, V), 1 << 26)
+    # Exits below SENT where a row has no edge: its clamp decides it.
+    bare = (win < 0).all(-1) & (torch.rand((B, V), device=card) < 0.5)
+    e_ex[bare] = tbl.SENT - 1000
+    x_in = near_sent((B, G, W + 1), 1 << 27)
+    x_in[..., W] = 0
+    a = tbl._rows(tbl._esc2_band(win, cov, uns), e_ex, L)
+    want = tbl._fill(a, x_in)
+    before = dict(C.fill_routes)
+    n = 0
+    for plan in (C.fill_plan(B, G, W, L), C.fill_plan(B, G, W, L, route="reduce")):
+        for k in range(4):
+            got = C.fill_cuda(_offset_copy(win, k), _offset_copy(cov, k),
+                              _offset_copy(uns, k), _offset_copy(e_ex, k),
+                              _offset_copy(x_in, k), L, plan=plan)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (plan, k)
+        n += 4 if B else 0
+    assert C.fill_routes == {"reduce": before["reduce"] + n // 2,
+                             "lane": before["lane"] + n // 2}
 
 
 @pytest.mark.parametrize("B,G,W", [(3, 1, 32), (4, 7, 1), (2, 5, 128),
@@ -1051,6 +1117,7 @@ def test_blocked_solve_counts_routes(card):
         t = batch_to_torch(tdp.random_batch(rng, 4, 512, W, 4), card)
         e_ex = tbl.exit_half_units(t["exit_count"])
         comp, prop = dict(C.compose_routes), dict(C.propagate_routes)
+        fill = dict(C.fill_routes)
         widths = dict(C.route_widths)
         got = tbl.solve_band(t["win_count"], t["cov"], t["unsup"], e_ex, 64)
         want = tbl.solve_band_reference(t["win_count"], t["cov"], t["unsup"],
@@ -1059,14 +1126,17 @@ def test_blocked_solve_counts_routes(card):
         assert torch.equal(got, want)
         assert C.compose_routes == {**comp, "column": comp["column"] + 1}
         assert C.propagate_routes == {**prop, "warp": prop["warp"] + 1}
+        assert C.fill_routes == {**fill, "lane": fill["lane"] + 1}
         for key in (("blocked_compose", "column", W),
-                    ("blocked_propagate", "warp", W)):
+                    ("blocked_propagate", "warp", W),
+                    ("blocked_fill", "lane", W)):
             assert C.route_widths[key] == widths.get(key, 0) + 1
 
 
 def test_blocked_entries_refuse_bad_plans(card):
-    """Each C entry refuses a plan it does not take, with no launch: the
-    wrong route, shared memory, threads, blocks, warps or depth."""
+    """Each C entry refuses a plan it does not take, with no launch, at
+    B = 0 too: the wrong route, shared memory, threads, blocks, warps or
+    depth."""
     from pbdagcon_tpu_torch.ops import dp_blocked as tbl
     from pbdagcon_tpu_torch.ops import dp_blocked_cuda as C
 
@@ -1077,7 +1147,7 @@ def test_blocked_entries_refuse_bad_plans(card):
     M = C.compose_cuda(win, cov, uns, e_ex, 64)
     good_c, good_p = C.compose_plan(3, 4, 16, 64), C.propagate_plan(3, 4, 16)
     before = (dict(C.launches), dict(C.compose_routes),
-              dict(C.propagate_routes))
+              dict(C.propagate_routes), dict(C.fill_routes))
     for bad in ({**good_c, "smem": good_c["smem"] + 16},
                 {**good_c, "threads": good_c["threads"] + 32},
                 {**good_c, "blocks": 0},
@@ -1097,7 +1167,26 @@ def test_blocked_entries_refuse_bad_plans(card):
                 C.propagate_plan(3, 4, 32)):
         with pytest.raises(RuntimeError, match="blocked_propagate launch"):
             C.propagate_cuda(M, plan=bad)
-    assert (C.launches, C.compose_routes, C.propagate_routes) == before
+    assert (C.launches, C.compose_routes, C.propagate_routes,
+            C.fill_routes) == before
+    x_in = C.propagate_cuda(M)
+    good_f = C.fill_plan(3, 4, 16, 64)
+    before = (dict(C.launches), dict(C.compose_routes),
+              dict(C.propagate_routes), dict(C.fill_routes))
+    for bad in ({**good_f, "smem": good_f["smem"] + 16},
+                {**good_f, "blocks": 3},  # past 32 // 16
+                {**good_f, "blocks": 0},
+                {**good_f, "warps": 9},
+                {**good_f, "warps": 0},
+                C.fill_plan(3, 4, 32, 64),  # another W's plan
+                {**C.fill_plan(3, 4, 16, 64, route="reduce"), "warps": 2},
+                {**C.fill_plan(3, 4, 16, 64, route="reduce"), "blocks": 2}):
+        for n in (3, 0):
+            with pytest.raises(RuntimeError, match="blocked_fill launch"):
+                C.fill_cuda(win[:n], cov[:n], uns[:n], e_ex[:n], x_in[:n], 64,
+                            plan=bad)
+    assert (C.launches, C.compose_routes, C.propagate_routes,
+            C.fill_routes) == before
 
 
 def test_blocked_wrappers_reject_what_they_do_not_take(card):
@@ -1112,6 +1201,10 @@ def test_blocked_wrappers_reject_what_they_do_not_take(card):
     # Plans: an unknown route, a forced route that does not fit.
     with pytest.raises(ValueError, match="not a compose plan"):
         C.compose_cuda(win, cov, uns, e_ex, 64, plan={"route": "warp"})
+    with pytest.raises(ValueError, match="not a fill plan"):
+        C.fill_cuda(win, cov, uns, e_ex, torch.zeros(
+            (3, 4, 17), dtype=torch.int32, device=card), 64,
+            plan={"route": "cta"})
     with pytest.raises(ValueError, match="not a propagate plan"):
         C.propagate_cuda(torch.zeros((3, 4, 17, 17), dtype=torch.int32,
                                      device=card), plan={"route": "column"})
