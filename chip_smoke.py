@@ -107,6 +107,17 @@ Phases, in order; any failure exits non-zero before the last line:
    run; then
    `backend="blocked"` on the bench cell in
    turns with "cuda", byte-equal, with its flagged rows and launches.
+12. The multi-device modes: the bench batch through
+   `parallel.mesh.dp_scores_sharded` on meshes of one and two slots of
+   the card (B1 once a slot), bitwise equal to one B1 call, timed in
+   turns; every colshard target of the oversize cell through the
+   colshard's ring (`parallel.colshard`) at 2 and 4 slots of the card,
+   integer-equal to one slot and to the plain version on the CPU, with
+   X2's launches and the hops counted; then two CLI ranks
+   (`--distributed`, gloo on localhost) sharing the card on the bench
+   workload, on `--backend cuda -a` and on `--backend host` (the ranks
+   detach), each merged FASTA byte-equal to the single-process CLI run
+   and to the single-thread native engine, with each rank's wall.
 
 Each phase's own seconds are printed on a line of its own ("phase N:
 S s") as it ends. Then a JSON line of kernels (each with its launches
@@ -117,6 +128,8 @@ planned route, the "cta" route's ms and their launches by route and W,
 blocked_fill with its planned route, the "reduce" route's ms, both
 routes' graph-replayed ms and chain figure, and its launches by route
 and W;
+dp_scan and X2's three with their launches on phase 12's paths ("sharded",
+"ring"), the sharded DP's turns and the ring's hops and times;
 align_scan with its route and the "cta" route's
 ms, align_traceback with its route, the "thread" route's ms, the chain
 figure (the longest path's steps, ns a step) and the B = 32 call), and
@@ -132,6 +145,7 @@ import json
 import os
 import random
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -1691,7 +1705,7 @@ def main() -> int:
     x2_over = x2_times(oargs, f"the oversize target (n={on})")
     log(f"X2 solve at the oversize target: {x2_over['solve']['ms']} ms "
         f"summed (bound {x2_over['solve']['bound_ms']} ms) [{card}]")
-    del bargs, oargs, bench
+    del bargs, oargs
 
     def x2_zero() -> None:
         for k in X2:
@@ -1808,6 +1822,173 @@ def main() -> int:
         f"walls {[round(r[0], 4) for r in bruns['blocked']]} / "
         f"{[round(r[0], 4) for r in bruns['cuda']]} s); FASTA byte-equal [{card}]")
 
+    phase("12")
+    # ---- phase 12: the multi-device modes ----
+    from pbdagcon_tpu_torch.ops.dp import DP_ARGS
+    from pbdagcon_tpu_torch.parallel import colshard as csh
+    from pbdagcon_tpu_torch.parallel.mesh import Mesh, dp_scores_sharded
+
+    # (a) The bench batch through the sharded DP on meshes of one and of
+    # two slots of this card, each bitwise equal to one B1 call on the
+    # whole batch; the counts are set to 0 before each sharded run and
+    # read after it (the comparison's own launch is not counted). The
+    # batch is phase 11's.
+    sbatch = {k: bench[k] for k in DP_ARGS}
+    meshes = {1: Mesh((dev,)), 2: Mesh((dev, dev))}
+    sharded_launches = 0
+    whole = dp_cuda.dp_scores_cuda(*(
+        torch.from_numpy(np.ascontiguousarray(sbatch[k])).to(dev)
+        for k in DP_ARGS)).cpu()
+    for n, mesh in meshes.items():
+        dp_cuda.launches = 0
+        got = torch.from_numpy(dp_scores_sharded(sbatch, mesh))
+        launched = dp_cuda.launches
+        sharded_launches += launched
+        ok = bitwise_equal(got, whole)
+        worst = max(worst, max_abs_err(got, whole))
+        log(f"sharded DP on {n} slot(s) of {dev} at {tuple(bench['_dims'])}: "
+            f"{launched} dp_scan launches; bitwise "
+            f"{'OK' if ok else 'MISMATCH'} against one B1 call")
+        if not ok or launched != n:
+            raise SystemExit(f"chip_smoke: sharded DP on {n} slots != B1")
+    sh = [time_ms(lambda m=meshes[n]: dp_scores_sharded(sbatch, m), 3)
+          for n in (1, 2, 2, 1)]
+    log(f"sharded DP in turns (1, 2, 2, 1 slots; host upload, B1 a slot, "
+        f"fetch): {sh[0]} / {sh[1]} / {sh[2]} / {sh[3]} ms [{card}]")
+    del bench, sbatch, whole
+
+    # (b) Every target of the oversize cell that the colshard takes
+    # (span within the W ladder, the int32 bound at V padded to 64 x 4):
+    # the ring over 2 and 4 slots of this card, integer-equal to one slot
+    # and to the plain version on the CPU. The counts are set to 0 just
+    # before the ring runs and read just after them.
+    DMAX = 4
+    with native.NativeEngine(
+        min_weight=min_weight, min_length=100, threads=threads, align=True
+    ) as eng:
+        cnt = eng.linearize_text(otext, fmt="pre")
+        metas = eng.metas(cnt)
+        bands = []
+        for i in range(cnt):
+            n, span = int(metas[i, 0]), int(metas[i, 1])
+            Wb = next((w for w in ocfg.w_buckets if span <= w), None)
+            if Wb is None:
+                continue
+            Vb = -(-n // (64 * DMAX)) * (64 * DMAX)
+            pb = native.pack_batch(eng, [i], Vb, Wb, 1)
+            if dpb.blocked_safe(dpb.max_escore(pb), Vb):
+                bands.append(tuple(np.array(pb[k][0]) for k in (
+                    "win_count", "exit_count", "cov", "unsup")))
+    if not bands:
+        raise SystemExit("chip_smoke: no oversize target for the ring")
+    one = [csh.colsharded_scores(*b, Mesh((dev,))) for b in bands]
+    plain = [csh.colsharded_scores(*b, device="cpu") for b in bands]
+    x2_zero()
+    hops0 = csh.hops
+    ring = {D: [csh.colsharded_scores(*b, Mesh((dev,) * D)) for b in bands]
+            for D in (2, DMAX)}
+    torch.cuda.synchronize()
+    ring_launches = {k: x2c.launches[k] for k in X2}
+    ring_hops = csh.hops - hops0
+    for D, outs in ring.items():
+        for j, s in enumerate(outs):
+            if not (np.array_equal(s.view(np.int32), one[j].view(np.int32))
+                    and np.array_equal(s.view(np.int32),
+                                       plain[j].view(np.int32))):
+                raise SystemExit(f"chip_smoke: ring at D={D} != one slot or "
+                                 f"the plain version (target {j})")
+    want = len(bands) * (2 + DMAX)
+    if any(ring_launches[k] != want for k in X2) or ring_hops != len(bands) * (
+            1 + DMAX - 1):
+        raise SystemExit(f"chip_smoke: the ring launched {ring_launches}, "
+                         f"{ring_hops} hops (want {want} each)")
+    big = max(range(len(bands)), key=lambda j: bands[j][0].shape[0])
+    rt = {D: time_ms(lambda m=Mesh((dev,) * D): csh.colsharded_scores(
+        *bands[big], m), 3) for D in (1, 2, DMAX)}
+    log(f"ring over the oversize cell's {len(bands)} colshard targets (V "
+        f"{min(b[0].shape[0] for b in bands)}-{max(b[0].shape[0] for b in bands)}"
+        f"): at D = 2 and {DMAX} slots of {dev} integer-equal to D = 1 and "
+        f"to the plain version; X2 launches {ring_launches}, {ring_hops} hops; "
+        f"the largest target (V={bands[big][0].shape[0]}) {rt[1]} / {rt[2]} / "
+        f"{rt[DMAX]} ms at D = 1 / 2 / {DMAX} (CUDA events around whole "
+        f"calls, each ending with the scores on the host) [{card}]")
+
+    # (c, d) Two CLI ranks (--distributed, gloo on localhost) sharing this
+    # card on the bench workload: cuda with -a, then host; each merged
+    # FASTA byte-equal to the single-process CLI run's and to the
+    # single-thread native engine's.
+    root = os.path.dirname(os.path.abspath(__file__))
+    dist_dir = os.path.join(_build.BUILD_DIR, "dist")
+    shutil.rmtree(dist_dir, ignore_errors=True)
+    os.makedirs(dist_dir)
+    inp = os.path.join(dist_dir, "bench.pre")
+    with open(inp, "wb") as f:
+        f.write(text)
+    flags = ["-c", str(min_weight), "-m", "100", "-j", str(threads),
+             "--fmt", "pre", "-a", "--batch-targets", str(TARGETS)]
+
+    def cli(args, rank=None, port=None):
+        env = dict(os.environ, PYTHONPATH=root)
+        if rank is not None:
+            env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                       RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank))
+        out = os.path.join(dist_dir, f"out{rank}.fa")
+        return subprocess.Popen(
+            [sys.executable, "-m", "pbdagcon_tpu_torch", inp, *flags, *args],
+            stdout=open(out, "w"), stderr=subprocess.PIPE, text=True,
+            cwd=root, env=env), out, time.time()
+
+    def finish(p, out, t0):
+        try:
+            _, err = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            raise SystemExit("chip_smoke: a CLI rank hung")
+        if p.returncode != 0:
+            raise SystemExit(f"chip_smoke: a CLI run failed:\n{err[-3000:]}")
+        proc = [l for l in err.splitlines() if l.startswith("proc_time=")]
+        return open(out).read(), err, time.time() - t0, proc[-1] if proc else ""
+
+    def targets(fasta):
+        recs = []  # [sid, lines] a target, its fragments together
+        for line in fasta.splitlines(keepends=True):
+            if line.startswith(">"):
+                sid = line[1:].rsplit("/", 1)[0]
+                if not recs or recs[-1][0] != sid:
+                    recs.append([sid, []])
+            recs[-1][1].append(line)
+        return recs
+
+    def merged(a, b):
+        ta, tb = targets(a), targets(b)
+        return "".join("".join(t[1]) for i in range(max(len(ta), len(tb)))
+                       for t in (ta[i:i + 1] + tb[i:i + 1]))
+
+    for backend in ("cuda", "host"):
+        args = ["--backend", backend]
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        ranks = [cli(args + ["--distributed"], r, port) for r in (0, 1)]
+        res = [finish(*r) for r in ranks]
+        single = finish(*cli(args))
+        both = merged(res[0][0], res[1][0])
+        if not (both == single[0] == fasta_host):
+            raise SystemExit(f"chip_smoke: --distributed --backend {backend}: "
+                             "the merged FASTA != the single run's or the "
+                             "single-thread native engine's")
+        detached = ["detached after shard assignment" in r[1] for r in res]
+        if any(d != (backend == "host") for d in detached):
+            raise SystemExit(f"chip_smoke: --backend {backend}: ranks "
+                             f"detached {detached}")
+        log(f"--distributed --backend {backend}: 2 ranks on {dev}, "
+            f"{len(targets(res[0][0]))} + {len(targets(res[1][0]))} targets, "
+            f"merged FASTA byte-equal to the single run and the "
+            f"single-thread native engine (detached {detached}); walls rank 0 "
+            f"{res[0][2]:.4f} s ({res[0][3]}), rank 1 {res[1][2]:.4f} s "
+            f"({res[1][3]}), single {single[2]:.4f} s ({single[3]}) [{card}]")
+    shutil.rmtree(dist_dir, ignore_errors=True)
+
     phase(None)
     # ---- results ----
     log(card)
@@ -1819,11 +2000,14 @@ def main() -> int:
         "source": "pbdagcon_tpu_torch/csrc/dp_scan.cu",
         "replaces": "pbdagcon_tpu/ops/dp_pallas.py:40",
         "launches": cuda_path_launches + dev_launches["dp_scan"]
-        + blocked_launches["dp_scan"] + colshard_launches["dp_scan"],
+        + blocked_launches["dp_scan"] + colshard_launches["dp_scan"]
+        + sharded_launches,
         "launches_by_path": {"cuda": cuda_path_launches,
                              "devbuild": dev_launches["dp_scan"],
                              "blocked": blocked_launches["dp_scan"],
-                             "colshard": colshard_launches["dp_scan"]},
+                             "colshard": colshard_launches["dp_scan"],
+                             "sharded": sharded_launches},
+        "sharded_ms": {"turns_1_2_2_1_slots": sh},
         "max_abs_err": worst,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -1904,9 +2088,13 @@ def main() -> int:
         "source": "pbdagcon_tpu_torch/csrc/dp_blocked.cu",
         "replaces": f"pbdagcon_tpu/ops/dp_blocked.py:{line} (_solve_band, "
                     f":104); pbdagcon_tpu/parallel/colshard.py:{cs_line}",
-        "launches": colshard_launches[name] + blocked_launches[name],
+        "launches": colshard_launches[name] + blocked_launches[name]
+        + ring_launches[name],
         "launches_by_path": {"colshard": colshard_launches[name],
-                             "blocked": blocked_launches[name]},
+                             "blocked": blocked_launches[name],
+                             "ring": ring_launches[name]},
+        "ring": {"targets": len(bands), "slots": [2, DMAX], "hops": ring_hops,
+                 "largest_target_ms_by_slots": rt},
         "max_abs_err": worst_x2,
         "ms": x2_bench[name]["ms"],
         "plain_ms": x2_bench[name]["plain_ms"],

@@ -11,8 +11,13 @@ the int32 bound admits through the blocked max-plus solve (kernel X2).
 `--backend devbuild` runs the graph build, the DP and the
 backtrack on the device; `--backend hybrid` runs the host engine and the
 devbuild pipeline side by side on group-aligned chunks. `--device` picks the device (default cuda;
-"cpu" runs the kernels' plain PyTorch versions). `--distributed` comes with the
-multi-device slice (ROADMAP A14).
+"cpu" runs the kernels' plain PyTorch versions). `--distributed` runs one
+rank of a multi-process run: `torch.distributed` with the gloo backend,
+initialised from the env:// variables that `torchrun` sets
+(`MASTER_ADDR`, `MASTER_PORT`, `RANK`, `WORLD_SIZE`; `LOCAL_RANK` picks
+the card), `--shard` defaulting to rank/world; each rank writes its own
+output. On the host backend a rank leaves the group once every rank has
+its shard, so that a dead peer cannot stop the others.
 """
 
 from __future__ import annotations
@@ -116,8 +121,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--shard-bytes", action="store_true",
-        help="with --shard and a file input: read only this shard's "
-        "byte range of the file (group-boundary exact)",
+        help="with --shard/--distributed and a file input: read only "
+        "this shard's byte range of the file (group-boundary exact)",
     )
     p.add_argument(
         "--journal", default=None, metavar="PATH",
@@ -127,6 +132,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--profile-dir", default=None, metavar="DIR",
         help="write a torch.profiler chrome trace of the run to DIR",
+    )
+    p.add_argument(
+        "--distributed", action="store_true",
+        help="one rank of a multi-process run: torch.distributed (gloo) "
+        "from the env:// variables MASTER_ADDR, MASTER_PORT, RANK and "
+        "WORLD_SIZE (as torchrun sets them); --shard defaults to "
+        "rank/world and the card to cuda:(LOCAL_RANK mod cards); each "
+        "rank writes its own output",
     )
     p.add_argument(
         "--selfcheck", action="store_true",
@@ -145,6 +158,49 @@ def main(argv: list[str] | None = None) -> int:
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
         stream=sys.stderr,
     )
+    in_group = args.distributed and _join_group(args)
+    try:
+        return _run(args)
+    finally:
+        if in_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _join_group(args: argparse.Namespace) -> bool:
+    """Initialise this rank's process group (gloo, env://; raises if it
+    cannot), default `--shard` to rank/world and a bare "cuda" device to
+    the rank's card. On the host backend, leave the group once every
+    rank has joined: after the shard split the ranks share nothing, and
+    a dead peer must not stop the others. Returns whether the rank is
+    still in the group."""
+    import torch
+    import torch.distributed as dist
+
+    log = logging.getLogger("pbdagcon_tpu_torch")
+    dist.init_process_group("gloo", init_method="env://")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if not args.shard:
+        args.shard = f"{rank}/{world}"
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        args.device = f"cuda:{local % torch.cuda.device_count()}"
+    log.info("distributed: rank %d of %d, shard %s, device %s", rank, world,
+             args.shard, args.device)
+    if args.backend != "host":
+        return True
+    # Every rank waits here, so that rank 0, which hosts the store, does
+    # not tear it down before the others have joined.
+    dist.barrier()
+    dist.destroy_process_group()
+    log.info("distributed: detached after shard assignment "
+             "(host backend, shared-nothing)")
+    return False
+
+
+def _run(args: argparse.Namespace) -> int:
     cfg = DagconConfig(
         min_weight=args.min_coverage,
         min_length=args.min_length,

@@ -26,8 +26,9 @@ or "blocked" backend, the records are re-aligned by kernel X1 first
 (`device_align_stream`), and the rest of the run goes without `-a`.
 
 On the native-loader path, a target past the top V bucket takes the
-column-sharded DP on the card (`parallel/colshard.py`, X2 at B = 1) when
-the reference would: a W bucket holds its span and the int32 bound
+column-sharded DP over the process's cards (`parallel/colshard.py`, X2
+at B = 1, its boundary chain over the mesh's slots) when the reference
+would: a W bucket holds its span and the int32 bound
 holds. Other targets outside every (V, W, K) bucket, and oversized ones
 whose scores cross the f32-parity line, take the exact host DP and are
 counted in `PipelineStats.host_fallbacks` (SPEC.md §3.1).
@@ -71,6 +72,7 @@ from pbdagcon_tpu_torch.ops.dp_blocked import (
     max_escore,
 )
 from pbdagcon_tpu_torch.parallel.colshard import colsharded_scores
+from pbdagcon_tpu_torch.parallel.mesh import make_mesh
 
 log = logging.getLogger("pbdagcon_tpu_torch")
 
@@ -367,16 +369,20 @@ def _native_engine(cfg: DagconConfig):
 def _colshard_oversize(
     eng, idx: int, n: int, span: int, cfg: DagconConfig, device
 ) -> np.ndarray | None:
-    """Column-sharded DP on `device` for retained target `idx`, past
-    every V bucket (the reference's `_colshard_oversize` with a mesh of
-    one card). Returns scores[n + 1], or None when the reference would
-    take the host DP: no W bucket holds the span (long edges), counts
-    past the packer's int16 format, the int32 bound exceeded, or scores
-    past the f32-parity line. Any other failure raises."""
+    """Column-sharded DP for retained target `idx`, past every V bucket
+    (the reference's `_colshard_oversize`), over the mesh of every
+    device of `device`'s type that this process sees (every visible
+    card; one slot on the CPU), as the reference's mesh is
+    `jax.devices()`. Returns scores[n + 1], or None when the reference
+    would take the host DP: no W bucket holds the span (long edges),
+    counts past the packer's int16 format, the int32 bound exceeded, or
+    scores past the f32-parity line. Any other failure raises."""
     W = next((w for w in cfg.w_buckets if span <= w), None)
     if W is None:
         return None
-    V = -(-max(n, 1) // 64) * 64
+    mesh = make_mesh(device=device.type)
+    D = mesh.size
+    V = -(-max(n, 1) // (64 * D)) * (64 * D)
     try:
         batch = native.pack_batch(eng, [idx], V, W, 1)
     except LongEdgeOverflow:
@@ -386,7 +392,7 @@ def _colshard_oversize(
     try:
         s = colsharded_scores(
             batch["win_count"][0], batch["exit_count"][0], batch["cov"][0],
-            batch["unsup"][0], device,
+            batch["unsup"][0], mesh,
         )
     except OverflowError:  # past the f32-parity line: exact host DP
         return None

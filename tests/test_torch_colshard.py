@@ -1,12 +1,16 @@
-"""The port's one-card column-sharded DP (`pbdagcon_tpu_torch/parallel/
-colshard.py`, the blocked solve at B = 1) against the JAX package's
-`colsharded_scores` on the 8-device CPU mesh and on a 1-device mesh, and
-against the host DP; the oversize route of the native-loader path (byte-
-equal FASTA, the same host fallbacks as the reference's run, failures
-raised); and `backend="blocked"` through the pipeline and the CLI. The
-device is the CPU here (the kernels' plain versions); the same routes on
-the card are in tests/test_torch_cuda.py."""
+"""The port's column-sharded DP (`pbdagcon_tpu_torch/parallel/
+colshard.py`, the blocked solve at B = 1, its boundary ring over the
+slots of a mesh) against the JAX package's `colsharded_scores` on the
+8-device CPU mesh and on 1- and 2-device meshes, and against the host
+DP, at 1, 2, 3 and 8 CPU slots, integer for integer; the ring's boundary
+chain on random matrices; the oversize route of the native-loader path
+(byte-equal FASTA, the same host fallbacks as the reference's run,
+failures raised), on one slot and on an 8-slot mesh; and
+`backend="blocked"` through the pipeline and the CLI. The device is the
+CPU here (the kernels' plain versions); the same routes on the card are
+in tests/test_torch_cuda.py."""
 
+import functools
 import io
 import os
 import random
@@ -37,6 +41,8 @@ from pbdagcon_tpu_torch.config import DagconConfig
 from pbdagcon_tpu_torch.convert import config_from_jax
 from pbdagcon_tpu_torch.ops import dp_blocked as tbl
 from pbdagcon_tpu_torch.parallel import colsharded_scores
+from pbdagcon_tpu_torch.parallel import colshard as tcolshard
+from pbdagcon_tpu_torch.parallel import make_mesh as t_make_mesh
 from pbdagcon_tpu_torch.pipeline import run_stream
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
@@ -93,18 +99,111 @@ def test_colsharded_matches_reference_meshes_and_host(W, length, cov):
     assert done >= 1, "no eligible (span <= W) targets generated"
 
 
-def test_colsharded_overflow_raises_as_reference():
-    """Scores past the f32-parity line raise OverflowError in both."""
+def _overflowing_band():
     V, W = 300, 4
     win = np.full((V, W), -1, np.int32)
     win[:-1, 0] = 70000
     exit_c = np.full(V, -1, np.int32)
     exit_c[-1] = 0
-    arrs = (win, exit_c, np.zeros(V, np.int32), np.zeros(V, bool))
+    return win, exit_c, np.zeros(V, np.int32), np.zeros(V, bool)
+
+
+def test_colsharded_overflow_raises_as_reference():
+    """Scores past the f32-parity line raise OverflowError in both."""
+    arrs = _overflowing_band()
     with pytest.raises(OverflowError):
         jcolshard(*arrs, make_mesh(1))
     with pytest.raises(OverflowError):
         colsharded_scores(*arrs, device="cpu")
+
+
+def test_ring_overflow_raises_as_reference():
+    """The same band over two slots: OverflowError from the ring, as
+    from the JAX package's 2-device mesh."""
+    arrs = _overflowing_band()
+    with pytest.raises(OverflowError):
+        jcolshard(*arrs, make_mesh(2))
+    with pytest.raises(OverflowError):
+        colsharded_scores(*arrs, t_make_mesh(2, device="cpu"))
+
+
+@functools.lru_cache(maxsize=None)
+def _ring_case(W, length, cov):
+    """The first eligible target of seeds 30.. (its lin, band arrays),
+    the JAX package's scores on its 8- and 2-device meshes, and the
+    port's on one CPU slot."""
+    for seed in range(30, 45):
+        lin, arrs = _one_target_arrays(seed, length, cov, W)
+        if lin is not None:
+            break
+    else:
+        pytest.fail("no eligible (span <= W) target generated")
+    ref = [jcolshard(*arrs, make_mesh(n)) for n in (8, 2)]
+    return lin, arrs, ref, colsharded_scores(*arrs, device="cpu")
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 8])
+@pytest.mark.parametrize("W,length,cov", [(64, 400, 20), (32, 700, 12)])
+def test_ring_matches_one_slot_reference_meshes_and_host(D, W, length, cov):
+    """The ring over D CPU slots: integer-equal to one slot, to the JAX
+    package on its 8- and 2-device meshes and to the host DP, with one
+    hop a slot boundary."""
+    lin, arrs, ref, one = _ring_case(W, length, cov)
+    hops = tcolshard.hops
+    got = colsharded_scores(*arrs, t_make_mesh(D, device="cpu"))
+    assert tcolshard.hops - hops == D - 1
+    assert D == 1 or lin.n % (64 * D), "V happens to be a multiple of L x D"
+    np.testing.assert_array_equal(_bits(got), _bits(one))
+    np.testing.assert_array_equal(_bits(got), _bits(host_scores(lin)))
+    for r in ref:
+        np.testing.assert_array_equal(_bits(got), _bits(r))
+
+
+@pytest.mark.parametrize("V,D", [(777, 3), (130, 8), (1025, 5)])
+def test_ring_at_v_no_multiple_of_the_slots(V, D):
+    """A band cut to V rows (edges past the cut dropped), V no multiple
+    of L x D: the ring over D slots equals one slot and the JAX
+    package's 8-device mesh (W = 128: a halo of two blocks a slot)."""
+    lin, arrs = _one_target_arrays(31, 700, 12, 128)
+    assert lin is not None and lin.n >= V
+    win, ex, cov, uns = (np.array(a[:V]) for a in arrs)
+    u = np.arange(V)[:, None] + 1 + np.arange(win.shape[1])[None, :]
+    win[u >= V] = -1
+    ex[-1] = max(int(ex[-1]), 0)
+    cut = (win, ex, cov, uns)
+    one = colsharded_scores(*cut, device="cpu")
+    got = colsharded_scores(*cut, t_make_mesh(D, device="cpu"))
+    np.testing.assert_array_equal(_bits(got), _bits(one))
+    np.testing.assert_array_equal(_bits(got), _bits(jcolshard(*cut, make_mesh())))
+    assert np.isfinite(got).sum() > V // 2
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_boundary_chain_carries_x_exactly(seed):
+    """[I, M_0 .. M_{g-1}, M_x] propagated from x0, on random M and x
+    with SENT entries: M_x (x) x0 = x exactly, the blocks' x_in equal
+    the propagation from x, and I's x_in is M_0 (x) (block 0's x_in)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    g, Wp = 5, 17
+    M = rng.integers(-(1 << 20), 1 << 20, size=(1, g, Wp, Wp), dtype=np.int32)
+    M[rng.random(M.shape) < 0.3] = tbl.SENT
+    M[0, :, Wp - 1, :] = tbl.SENT
+    M[0, :, Wp - 1, Wp - 1] = 0  # the exit row of every transfer matrix
+    x = rng.integers(-(1 << 20), 1 << 20, size=Wp, dtype=np.int32)
+    x[rng.random(Wp) < 0.3] = tbl.SENT
+    x[Wp - 1] = 0
+    M, x = torch.from_numpy(M), torch.from_numpy(x)
+    x_in = tbl._propagate(tcolshard.boundary_chain(M, x))[0]
+    x0 = tcolshard._start(Wp, "cpu")
+    assert torch.equal(x_in[g + 1], x0)
+    assert torch.equal(x_in[g], x)
+    cur = x
+    for i in range(g - 1, -1, -1):
+        assert torch.equal(x_in[i + 1], cur)
+        cur = (M[0, i] + cur[None, :]).amax(-1).clamp_min(tbl.SENT)
+    assert torch.equal(x_in[0], cur)
 
 
 def _m5_text(seed, n_targets, length, cov) -> str:
@@ -166,6 +265,38 @@ def test_oversize_route_byte_equal_with_reference_fallbacks(w_buckets):
     assert stats.batches == stats.colshard == jstats.batches
     if w_buckets == (16, 32, 64, 128):
         assert stats.colshard >= 1, "colshard path not taken"
+
+
+def test_oversize_route_on_an_eight_slot_mesh(monkeypatch):
+    """The oversize route with the run's mesh replaced by 8 CPU slots
+    (the reference's 8-device mesh, tests/test_colshard.py's fixture):
+    V padded to 64 x 8, the ring taken, the FASTA byte-equal to the JAX
+    package's run and to the host backend's."""
+    _skip_without_native()
+    meshes = []
+
+    def eight(n_devices=None, device="cuda"):
+        assert device == "cpu" and n_devices is None
+        meshes.append(t_make_mesh(8, device="cpu"))
+        return meshes[-1]
+
+    monkeypatch.setattr(tpipeline, "make_mesh", eight)
+    text = _m5_text(21, 2, 500, 12)
+    kw = dict(use_native=True, min_weight=3, min_length=50)
+    want = io.StringIO()
+    run_stream(io.StringIO(text), FastaWriter(want),
+               DagconConfig(backend="host", **kw))
+    ref = io.StringIO()
+    jstats = jax_run_stream(io.StringIO(text), FastaWriter(ref), JaxConfig(
+        backend="xla", v_buckets=(256,), **kw))
+    hops = tcolshard.hops
+    got = io.StringIO()
+    stats = run_stream(io.StringIO(text), FastaWriter(got), DagconConfig(
+        backend="cuda", device="cpu", v_buckets=(256,), **kw))
+    assert got.getvalue() == ref.getvalue() == want.getvalue()
+    assert stats.colshard >= 1 and meshes
+    assert tcolshard.hops - hops == 7 * stats.colshard
+    assert stats.host_fallbacks == jstats.host_fallbacks
 
 
 @pytest.mark.parametrize("use_native", [True, False])

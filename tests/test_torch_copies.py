@@ -374,3 +374,35 @@ def test_blocked_solve_constants_copy():
         assert j_dp._blocked_L(v) == t_bl._blocked_L(v)
         for esc in (10.0, 760.0, 8192.0, 20000.0):
             assert j_bl.blocked_safe(esc, v) == t_bl.blocked_safe(esc, v)
+
+
+def test_scheduler_copy():
+    """`_bucket_of`, `BucketScheduler`, `Prefetcher` and the explicit
+    `shard_for_host` split are the reference's
+    (`pbdagcon_tpu/parallel/scheduler.py`) on the same inputs."""
+    from pbdagcon_tpu.parallel import scheduler as j_sc
+    from pbdagcon_tpu_torch.parallel import scheduler as t_sc
+
+    ladder = (256, 512, 1024)
+    for x in (0, 1, 255, 256, 257, 1024, 1025):
+        assert j_sc._bucket_of(x, ladder) == t_sc._bucket_of(x, ladder)
+    for h, n in ((0, 1), (1, 3), (2, 3), (4, 5)):
+        assert list(j_sc.shard_for_host(range(23), h, n)) == list(
+            t_sc.shard_for_host(range(23), h, n))
+    lins = [t_linearize.linearize(t_oracle.graph.AlnGraph(g.backbone), sid=g.sid)
+            for g in t_io.read_groups(open(os.path.join(DATA, "golden1.m5")),
+                                      "m5")]
+    ns = [17, 300, 600, 2000, 40, 512, 513, 90]
+    lins = [dataclasses.replace(lins[0], n=n) for n in ns]
+
+    def batches(mod):
+        sched = mod.BucketScheduler(v_buckets=(256, 512), batch_targets=2)
+        out = [sched.add(i, lin) for i, lin in enumerate(lins)]
+        out += list(sched.drain())
+        return [None if o is None else (o[0], [i for i, _l in o[1]])
+                for o in out]
+
+    assert batches(j_sc) == batches(t_sc)
+    for mod in (j_sc, t_sc):
+        assert list(mod.Prefetcher(lambda: iter(range(7)), depth=1)) == list(
+            range(7))

@@ -1224,3 +1224,112 @@ def test_blocked_wrappers_reject_what_they_do_not_take(card):
         C.compose_cuda(torch.zeros((1, 256, 136), dtype=torch.int16,
                                    device=card), cov[:1], uns[:1], e_ex[:1], 64)
     assert C.launches == before
+
+
+def _target_band(seed, length, cov, W):
+    """One simulated target's band arrays (as the oversize route packs
+    them), or None when an edge outspans W."""
+    import random
+
+    from pbdagcon_tpu_torch.alignment import normalize_gaps
+    from pbdagcon_tpu_torch.oracle.graph import AlnGraph
+    from pbdagcon_tpu_torch.ops.linearize import linearize
+    from pbdagcon_tpu_torch.simulate import NoiseProfile, simulate_pileup
+
+    backbone, alns = simulate_pileup(random.Random(seed), f"r{seed}", length,
+                                     cov, NoiseProfile())
+    g = AlnGraph(backbone)
+    for a in alns:
+        g.add_aln(normalize_gaps(a))
+    g.merge_nodes()
+    lin = linearize(g)
+    if lin.span > W:
+        return None
+    u = np.repeat(np.arange(lin.n, dtype=np.int32), np.diff(lin.edge_off))
+    inner = lin.edge_tgt < lin.n
+    win = np.full((lin.n, W), -1, dtype=np.int32)
+    win[u[inner], (lin.edge_tgt - u - 1)[inner]] = lin.edge_cnt[inner]
+    return win, lin.exit_count, lin.cov, lin.unsup
+
+
+def test_sharded_dp_on_two_slots_of_one_card(card):
+    """`dp_scores_sharded` over (cuda:0, cuda:0): B1 once a slot, the
+    scores bitwise equal to one `dp_scores` call on the whole batch."""
+    from pbdagcon_tpu_torch.parallel.mesh import Mesh, dp_scores_sharded
+
+    rng = np.random.default_rng(77)
+    batch = tdp.random_batch(rng, 37, 333, 32, 8)
+    before = dp_cuda.launches
+    got = dp_scores_sharded(batch, Mesh((card, card)))
+    assert dp_cuda.launches == before + 2
+    t = batch_to_torch(batch, card)
+    want = tdp.dp_scores(*(t[k] for k in tdp.DP_ARGS)).cpu()
+    assert _same_bits(torch.from_numpy(got), want)
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("W,length,cov", [(32, 700, 12), (64, 400, 20)])
+def test_ring_on_card_matches_one_slot_and_plain(card, D, W, length, cov):
+    """The colshard's ring over D slots of one card: X2's three kernels
+    once a slot, D - 1 hops, the scores integer-equal to one slot's and
+    to the plain version's on the CPU."""
+    from pbdagcon_tpu_torch.ops import dp_blocked_cuda as C
+    from pbdagcon_tpu_torch.parallel import colshard
+    from pbdagcon_tpu_torch.parallel.mesh import Mesh
+
+    arrs = next(a for a in (_target_band(s, length, cov, W)
+                            for s in range(30, 45)) if a is not None)
+    one = colshard.colsharded_scores(*arrs, Mesh((card,)))
+    plain = colshard.colsharded_scores(*arrs, device="cpu")
+    before, hops = dict(C.launches), colshard.hops
+    got = colshard.colsharded_scores(*arrs, Mesh((card,) * D))
+    assert {k: C.launches[k] - before[k] for k in before} == dict.fromkeys(
+        before, D)
+    assert colshard.hops == hops + D - 1
+    for want in (one, plain):
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_boundary_chain_on_card(card):
+    """X2's propagate over [I, M.., M_x] carries x exactly, as the plain
+    propagate does."""
+    from pbdagcon_tpu_torch.ops import dp_blocked as tbl
+    from pbdagcon_tpu_torch.ops import dp_blocked_cuda as C
+    from pbdagcon_tpu_torch.parallel import colshard
+
+    rng = np.random.default_rng(5)
+    for g, Wp in ((3, 17), (40, 33), (9, 65)):
+        M = rng.integers(-(1 << 20), 1 << 20, size=(1, g, Wp, Wp),
+                         dtype=np.int32)
+        M[rng.random(M.shape) < 0.3] = tbl.SENT
+        x = rng.integers(-(1 << 20), 1 << 20, size=Wp, dtype=np.int32)
+        x[rng.random(Wp) < 0.3] = tbl.SENT
+        x[-1] = 0
+        chain = colshard.boundary_chain(torch.from_numpy(M), torch.from_numpy(x))
+        want = tbl._propagate(chain)
+        got = C.propagate_cuda(chain.to(card)).cpu()
+        assert torch.equal(got, want)
+        assert torch.equal(got[0, g], torch.from_numpy(x))
+
+
+def test_make_mesh_on_card_and_without_one(card):
+    """Every visible card a slot; with none visible, make_mesh raises."""
+    import subprocess
+    import sys
+
+    from pbdagcon_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    assert mesh.size == torch.cuda.device_count()
+    assert mesh.devices[0] == torch.device("cuda", 0)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run(
+        [sys.executable, "-c",
+         "from pbdagcon_tpu_torch.parallel.mesh import make_mesh\n"
+         "try:\n    make_mesh()\nexcept RuntimeError as e:\n"
+         "    print('raised', e)\n"],
+        capture_output=True, text=True, timeout=120, cwd=root,
+        env=dict(os.environ, PYTHONPATH=root, CUDA_VISIBLE_DEVICES=""),
+    )
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.startswith("raised"), res.stdout

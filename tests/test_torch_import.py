@@ -53,6 +53,7 @@ _PORT_MODULES = (
     "tools.prof_pk", "tools.dp_ablate", "parallel.journal",
     "ops.align_tpu", "ops.align_cuda", "hybrid", "dazcon",
     "ops.dp_blocked", "ops.dp_blocked_cuda", "parallel.colshard",
+    "parallel.mesh", "parallel.scheduler",
     # the copies of the JAX package's framework-free modules
     "alignment", "io", "oracle", "oracle.graph", "ops.linearize", "aligner",
     "simulate", "selfcheck", "ops.devbuild", "hgap", "dazzio",
