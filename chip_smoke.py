@@ -118,6 +118,20 @@ Phases, in order; any failure exits non-zero before the last line:
    workload, on `--backend cuda -a` and on `--backend host` (the ranks
    detach), each merged FASTA byte-equal to the single-process CLI run
    and to the single-thread native engine, with each rank's wall.
+13. BASELINE.json configs #3 and #5 through the port's tools: config #3
+   (64 targets x 1000 bp, gapped M5 without -a, `-c cov // 4`) at 200x
+   and at 100x through `tools.bench_highdepth` on "cuda" and "devbuild"
+   (each FASTA byte-equal to the single-thread native engine, host
+   fallbacks by reason, the shape rungs; at 100x devbuild takes an R rung
+   above 64, B1-B3 launched there), every hist, scatter and DP call of
+   the 100x window held against its plain version, and the execute-only
+   step rate at 100x; then `tools.soak_stream` on `--backend cuda`
+   (killed and resumed with `--journal`: complete and exactly once; a
+   stream this short has no steady window, so the RSS bound is judged
+   only by the tool's own longer runs) and `tools.soak_multirank` with
+   two `--backend cuda` ranks on
+   the card (rank 1 killed and resumed; the survivor's exit code), each
+   a subprocess that exits non-zero on any failed check.
 
 Each phase's own seconds are printed on a line of its own ("phase N:
 S s") as it ends. Then a JSON line of kernels (each with its launches
@@ -129,7 +143,10 @@ blocked_fill with its planned route, the "reduce" route's ms, both
 routes' graph-replayed ms and chain figure, and its launches by route
 and W;
 dp_scan and X2's three with their launches on phase 12's paths ("sharded",
-"ring"), the sharded DP's turns and the ring's hops and times;
+"ring"), the sharded DP's turns and the ring's hops and times; dp_scan,
+hist and scatter with their launches on phase 13's ("highdepth",
+"soak"), dp_scan with config #3's readings, hist and scatter with the
+100x window's;
 align_scan with its route and the "cta" route's
 ms, align_traceback with its route, the "thread" route's ms, the chain
 figure (the longest path's steps, ns a step) and the B = 32 call), and
@@ -1989,6 +2006,90 @@ def main() -> int:
             f"({res[1][3]}), single {single[2]:.4f} s ({single[3]}) [{card}]")
     shutil.rmtree(dist_dir, ignore_errors=True)
 
+    phase("13")
+    # ---- phase 13: config #3 (high depth) and config #5 (the stream) ----
+    from pbdagcon_tpu_torch.tools import bench_highdepth as bhd
+
+    # (a) Config #3, 64 targets x 1000 bp, gapped M5 without -a, at 200x
+    # (devbuild's targets pass the 14-bit node cap and take the host,
+    # "ins_cap") and at 100x (under it: devbuild at an R rung above 64).
+    # The counts are set to 0 just before the runs and read just after.
+    dp_cuda.launches = 0
+    mxu_cuda.launches.update(hist=0, scatter=0)
+    hd = {cov: bhd.bench(cov, 64, 1000, dev, backends=("cuda", "devbuild"),
+                         reps=2, threads=threads, log=log)
+          for cov in (200, 100)}
+    hd_launches = {"dp_scan": dp_cuda.launches, **mxu_cuda.launches}
+    for cov, rep in hd.items():
+        if not rep["parity"]:
+            raise SystemExit(f"chip_smoke: config #3 at {cov}x: a FASTA != "
+                             "the single-thread native engine's")
+        fb = rep["backends"]["devbuild"]["fallback_reasons"]
+        log(f"config #3 at {cov}x: cuda and devbuild byte-equal to the "
+            f"single-thread native engine; devbuild fallbacks by reason {fb}"
+            f" of {rep['backends']['devbuild']['targets']} [{card}]")
+    deep = [r for r in hd[100]["backends"]["devbuild"]["rungs"]
+            if r["R"] > 64]
+    dev100 = hd[100]["backends"]["devbuild"]["launches"]
+    if not deep or dev100["hist"] == 0 or dev100["scatter"] == 0 or any(
+            hd[c]["backends"]["cuda"]["launches"]["dp_scan"] == 0
+            for c in hd) or dev100["dp_scan"] == 0:
+        raise SystemExit(f"chip_smoke: config #3 did not launch B1-B3 at an "
+                         f"R rung above 64 ({hd[100]['backends']})")
+    held = bhd.hold_window(100, 64, 1000, dev, threads=threads, log=log)
+    ex = bhd.exec_only(100, 64, 1000, dev, steps=3, threads=threads, log=log)
+    log(f"config #3 launches (cuda and devbuild at 200x and 100x, 2 runs "
+        f"each): {hd_launches}; devbuild rungs above R=64 at 100x: {deep}; "
+        f"the 100x window's calls (R={held['R']}) equal to the plain "
+        f"versions: {held['held']}; exec-only step {ex['bases_per_s']:.1f} "
+        f"b/s over the {ex['targets'] - ex['flagged']} unflagged of "
+        f"{ex['targets']} targets [{card}]")
+
+    # (b) Config #5: soak_stream on --backend cuda, killed and resumed;
+    # (c) two --backend cuda ranks on this card, rank 1 killed and
+    # resumed. Each tool exits non-zero on any failed check.
+    soak_dir = os.path.join(_build.BUILD_DIR, "soak")
+    shutil.rmtree(soak_dir, ignore_errors=True)
+    soak_launches: dict = {}
+
+    def soak_tool(module, args):
+        res = subprocess.run(
+            [sys.executable, "-m", module, *args], capture_output=True,
+            text=True, cwd=root, env=dict(os.environ, PYTHONPATH=root),
+            timeout=600)
+        if res.returncode != 0:
+            raise SystemExit(f"chip_smoke: {module} failed "
+                             f"(rc {res.returncode}):\n{res.stderr[-3000:]}")
+        rep = json.loads(res.stdout.strip().splitlines()[-1])
+        for k, v in rep["launches"].items():
+            soak_launches[k] = soak_launches.get(k, 0) + v
+        return rep
+
+    ss = soak_tool("pbdagcon_tpu_torch.tools.soak_stream", [
+        "1200", "--backend", "cuda", "--exactly-once-only", "--poll", "0.1",
+        "--threads", str(threads), "--timeout", "300", "--workdir",
+        os.path.join(soak_dir, "stream")])
+    log(f"soak_stream --backend cuda --exactly-once-only: {ss['targets']} "
+        f"targets, SIGKILL at {ss['journaled_at_kill']} journaled, resumed; "
+        f"every target once ({ss['dup_inflight_targets']} in flight written "
+        f"twice, byte-identical); run 1 {ss['run1_s']:.4f} s, resume "
+        f"{ss['resume_s']:.4f} s; max RSS {ss['max_rss_mb']:.1f} MB (too "
+        f"short a stream for the RSS bound); launches {ss['launches']} "
+        f"[{card}]")
+    mr = soak_tool("pbdagcon_tpu_torch.tools.soak_multirank", [
+        "1200", "--ranks", "2", "--backend", "cuda", "--threads",
+        str(max(1, threads // 2)), "--poll", "0.1", "--timeout", "300",
+        "--workdir", os.path.join(soak_dir, "multirank")])
+    log(f"soak_multirank, 2 --backend cuda ranks on {dev}: rank 1 SIGKILLed "
+        f"at {mr['killed_at']} journaled, survivor rcs {mr['survivor_rcs']}, "
+        f"resumed {mr['resumed_ranks']}; {mr['emitted']} targets once, "
+        f"byte-equal to one host process; phase A {mr['phaseA_s']:.4f} s, "
+        f"resume {mr['resume_s']:.4f} s; launches {mr['launches']} [{card}]")
+    if soak_launches.get("dp_scan", 0) == 0:
+        raise SystemExit(f"chip_smoke: the soaks launched no B1 "
+                         f"({soak_launches})")
+    shutil.rmtree(soak_dir, ignore_errors=True)
+
     phase(None)
     # ---- results ----
     log(card)
@@ -2001,14 +2102,23 @@ def main() -> int:
         "replaces": "pbdagcon_tpu/ops/dp_pallas.py:40",
         "launches": cuda_path_launches + dev_launches["dp_scan"]
         + blocked_launches["dp_scan"] + colshard_launches["dp_scan"]
-        + sharded_launches,
+        + sharded_launches + hd_launches["dp_scan"]
+        + soak_launches.get("dp_scan", 0),
         "launches_by_path": {"cuda": cuda_path_launches,
                              "devbuild": dev_launches["dp_scan"],
                              "blocked": blocked_launches["dp_scan"],
                              "colshard": colshard_launches["dp_scan"],
-                             "sharded": sharded_launches},
+                             "sharded": sharded_launches,
+                             "highdepth": hd_launches["dp_scan"],
+                             "soak": soak_launches.get("dp_scan", 0)},
+        "highdepth": {"exec_only": ex, "window": held,
+                      "by_cov": {c: {b: {k: r[k] for k in (
+                          "bases_per_s", "vs_1core", "fallback_reasons",
+                          "rungs", "launches")}
+                          for b, r in rep["backends"].items()}
+                          for c, rep in hd.items()}},
         "sharded_ms": {"turns_1_2_2_1_slots": sh},
-        "max_abs_err": worst,
+        "max_abs_err": max(worst, held["worst"]["dp_scan"]),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": dp_bound,
@@ -2023,8 +2133,14 @@ def main() -> int:
         "route": "cuda",
         "source": "pbdagcon_tpu_torch/csrc/hist_scatter.cu",
         "replaces": "pbdagcon_tpu/ops/mxu.py:60",
-        "launches": dev_launches["hist"],
-        "max_abs_err": worst_k["hist"],
+        "launches": dev_launches["hist"] + hd_launches["hist"]
+        + soak_launches.get("hist", 0),
+        "launches_by_path": {"devbuild": dev_launches["hist"],
+                             "highdepth": hd_launches["hist"],
+                             "soak": soak_launches.get("hist", 0)},
+        "highdepth_window": {"R": held["R"], "calls": held["held"]["hist"],
+                             "max_abs_err": held["worst"]["hist"]},
+        "max_abs_err": max(worst_k["hist"], held["worst"]["hist"]),
         "ms": hist_ms,
         "plain_ms": hist_plain,
         "bound_ms": hist_bound,
@@ -2037,8 +2153,14 @@ def main() -> int:
         "route": "cuda",
         "source": "pbdagcon_tpu_torch/csrc/hist_scatter.cu",
         "replaces": "pbdagcon_tpu/ops/mxu.py:305",
-        "launches": dev_launches["scatter"],
-        "max_abs_err": worst_k["scatter"],
+        "launches": dev_launches["scatter"] + hd_launches["scatter"]
+        + soak_launches.get("scatter", 0),
+        "launches_by_path": {"devbuild": dev_launches["scatter"],
+                             "highdepth": hd_launches["scatter"],
+                             "soak": soak_launches.get("scatter", 0)},
+        "highdepth_window": {"R": held["R"], "calls": held["held"]["scatter"],
+                             "max_abs_err": held["worst"]["scatter"]},
+        "max_abs_err": max(worst_k["scatter"], held["worst"]["scatter"]),
         "ms": sc_ms,
         "plain_ms": sc_plain,
         "bound_ms": sc_bound,

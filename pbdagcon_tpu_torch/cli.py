@@ -23,6 +23,7 @@ its shard, so that a dead peer cannot stop the others.
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import resource
@@ -200,6 +201,20 @@ def _join_group(args: argparse.Namespace) -> bool:
     return False
 
 
+def launch_counts() -> dict[str, int]:
+    """This process's kernel launches by kernel, from the wrappers'
+    counts (of the wrapper modules the run imported; none on the CPU)."""
+    out: dict[str, int] = {}
+    dp = sys.modules.get("pbdagcon_tpu_torch.ops.dp_cuda")
+    if dp is not None:
+        out["dp_scan"] = dp.launches
+    for name in ("mxu_cuda", "align_cuda", "dp_blocked_cuda"):
+        mod = sys.modules.get(f"pbdagcon_tpu_torch.ops.{name}")
+        if mod is not None:
+            out.update(mod.launches)
+    return out
+
+
 def _run(args: argparse.Namespace) -> int:
     cfg = DagconConfig(
         min_weight=args.min_coverage,
@@ -279,6 +294,8 @@ def _run(args: argparse.Namespace) -> int:
             f"cpu_time={ru.ru_utime + ru.ru_stime:.3f}s",
             file=sys.stderr,
         )
+        print("kernel_launches=" + json.dumps(launch_counts()),
+              file=sys.stderr)
     finally:
         if prof is not None:
             prof.__exit__(None, None, None)

@@ -755,6 +755,7 @@ def run_devbuild_native(stream, out, cfg, stats, device, journal=None):
                 device,
             )
             stats.batches += 1
+            stats.rung(R=caps.R, C=caps.C, L=caps.L, W=caps.W, V=caps.V)
             batches.append((part, fetch, bkey, caps))
         plan["batches"] = batches
         return plan

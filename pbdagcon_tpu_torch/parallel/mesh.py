@@ -42,11 +42,14 @@ class Mesh:
 
 
 def make_mesh(n_devices: int | None = None, device="cuda") -> Mesh:
-    """1-D mesh over this process's devices of `device`'s type: for
-    "cuda" the first `n_devices` cards (default every visible card;
-    raises where there is none, or fewer than asked), for "cpu"
-    `n_devices` slots of the CPU (default 1)."""
-    kind = torch.device(device).type
+    """1-D mesh over this process's devices of `device`'s type: for a
+    bare "cuda" the first `n_devices` cards (default every visible card;
+    raises where there is none, or fewer than asked), for a card with an
+    index ("cuda:1", a run's `--device` or a rank's card) one slot on
+    that card, for "cpu" `n_devices` slots of the CPU (default 1).
+    `device` is a string or a torch.device."""
+    dev = torch.device(device)
+    kind = dev.type
     if kind == "cuda":
         count = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if count == 0:
@@ -54,6 +57,13 @@ def make_mesh(n_devices: int | None = None, device="cuda") -> Mesh:
                 "make_mesh: no CUDA card is visible (pass device='cpu' for "
                 "a mesh of CPU slots)"
             )
+        if dev.index is not None:
+            if n_devices not in (None, 1):
+                raise ValueError(f"make_mesh: {n_devices} slots asked of the "
+                                 f"one card {dev}")
+            if dev.index >= count:
+                raise ValueError(f"make_mesh: {dev} asked, {count} visible")
+            return Mesh((dev,))
         n = count if n_devices is None else n_devices
         if not 1 <= n <= count:
             raise ValueError(f"make_mesh: {n} cards asked, {count} visible")

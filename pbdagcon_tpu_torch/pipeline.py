@@ -132,6 +132,13 @@ class PipelineStats:
     # first-use warmup included (set when the device took a chunk).
     hybrid_dev_first_s: float = 0.0
     hybrid_dev_first_bytes: int = 0
+    # Device batches by shape rung, keyed by the rung's (name, size)
+    # pairs: V, W, K on the native-loader path; R, C, L, W, V on devbuild.
+    rungs: dict[tuple, int] = dataclasses.field(default_factory=dict)
+
+    def rung(self, **dims: int) -> None:
+        key = tuple(dims.items())
+        self.rungs[key] = self.rungs.get(key, 0) + 1
 
     def fallback(self, reason: str, n: int = 1) -> None:
         self.host_fallbacks += n
@@ -370,17 +377,18 @@ def _colshard_oversize(
     eng, idx: int, n: int, span: int, cfg: DagconConfig, device
 ) -> np.ndarray | None:
     """Column-sharded DP for retained target `idx`, past every V bucket
-    (the reference's `_colshard_oversize`), over the mesh of every
-    device of `device`'s type that this process sees (every visible
-    card; one slot on the CPU), as the reference's mesh is
-    `jax.devices()`. Returns scores[n + 1], or None when the reference
+    (the reference's `_colshard_oversize`), over the run's mesh: one
+    slot on a card with an index (`--device cuda:1`, or a rank's card
+    under `--distributed`), every visible card for a bare "cuda" (as
+    the reference's mesh is `jax.devices()`), one slot on the CPU.
+    Returns scores[n + 1], or None when the reference
     would take the host DP: no W bucket holds the span (long edges),
     counts past the packer's int16 format, the int32 bound exceeded, or
     scores past the f32-parity line. Any other failure raises."""
     W = next((w for w in cfg.w_buckets if span <= w), None)
     if W is None:
         return None
-    mesh = make_mesh(device=device.type)
+    mesh = make_mesh(device=str(device))
     D = mesh.size
     V = -(-max(n, 1) // (64 * D)) * (64 * D)
     try:
@@ -559,6 +567,7 @@ def _run_stream_native(
                         stats.blocked_reruns += fut.reruns
                         stats.add_time("dispatch", t0)
                         stats.batches += 1
+                        stats.rung(V=V, W=W, K=K)
                         futures.append((idxs, fut))
                     for i in idxs:
                         stats.pad_nodes += V - int(ns[i])

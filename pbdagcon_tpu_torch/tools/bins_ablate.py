@@ -35,16 +35,12 @@ TARGETS, LENGTH, COVERAGE = 512, 1000, 30
 NUM_SMS = 132  # an H100 SXM's
 
 
-def capture_window(eng, count: int, min_weight: int, dev) -> tuple:
-    """Run the device build of the first `count` targets encoded in
-    `eng` as one window (caps chosen as `devpipe` chooses them) and
-    capture its kernel calls: returns ({"hist": [(values, valid, D)],
-    "scatter": [(ranks, valid, payloads, D, cut_mask)], "dp": [args]},
-    caps, targets in the window)."""
-    import torch
-
+def window_batch(eng, count: int, dev) -> tuple:
+    """One devbuild window of the first `count` targets encoded in `eng`
+    (caps chosen as `devpipe` chooses them, the targets past the
+    insertion cap left out, at most B): returns (the packed inputs on
+    `dev`, caps, the backtrack's P, the targets in the window)."""
     from pbdagcon_tpu_torch import devpipe, native
-    from pbdagcon_tpu_torch.ops import dp_cuda, mxu_cuda
 
     metas = eng.enc_metas(count)
     R, C, L = (int(metas[:, k].max()) for k in range(3))
@@ -54,12 +50,26 @@ def capture_window(eng, count: int, min_weight: int, dev) -> tuple:
     prof = devpipe._profile(int(metas[:, 3].sum()), int(metas[:, 4].sum()))
     caps = devpipe.choose_window_caps(bkey + (prof.W,), metas, prof, {}, {}, {})
     idxs = [i for i in range(count)
-            if int(metas[i, 3]) <= devpipe.ins_cap(caps)]
+            if int(metas[i, 3]) <= devpipe.ins_cap(caps)][:caps.B]
     host = native.enc_fill_packed(eng, idxs, caps.R, caps.C, caps.L,
                                   devpipe.ins_cap(caps), B=caps.B,
                                   pin_memory=dev.type == "cuda")
     inputs = tuple(x.to(dev) for x in host)
-    P = min(caps.V, 2 * caps.L + 64)
+    return inputs, caps, min(caps.V, 2 * caps.L + 64), len(idxs)
+
+
+def capture_window(eng, count: int, min_weight: int, dev) -> tuple:
+    """Run the device build of the first `count` targets encoded in
+    `eng` as one window (`window_batch`) and capture its kernel calls:
+    returns ({"hist": [(values, valid, D)], "scatter": [(ranks, valid,
+    payloads, D, cut_mask)], "dp": [args]}, caps, targets in the
+    window)."""
+    import torch
+
+    from pbdagcon_tpu_torch import devpipe
+    from pbdagcon_tpu_torch.ops import dp_cuda, mxu_cuda
+
+    inputs, caps, P, n = window_batch(eng, count, dev)
 
     calls = {"hist": [], "scatter": [], "dp": []}
     real_hist, real_scatter = mxu_cuda.hist_cuda, mxu_cuda.scatter_cuda
@@ -90,7 +100,7 @@ def capture_window(eng, count: int, min_weight: int, dev) -> tuple:
         dp_cuda.dp_scores_cuda = real_dp
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    return calls, caps, len(idxs)
+    return calls, caps, n
 
 
 def call_shape(op: str, c) -> tuple:

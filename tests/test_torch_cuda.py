@@ -1267,16 +1267,22 @@ def test_sharded_dp_on_two_slots_of_one_card(card):
     assert _same_bits(torch.from_numpy(got), want)
 
 
+@pytest.mark.parametrize("index", [None, 0])
 @pytest.mark.parametrize("D", [2, 4])
 @pytest.mark.parametrize("W,length,cov", [(32, 700, 12), (64, 400, 20)])
-def test_ring_on_card_matches_one_slot_and_plain(card, D, W, length, cov):
-    """The colshard's ring over D slots of one card: X2's three kernels
-    once a slot, D - 1 hops, the scores integer-equal to one slot's and
-    to the plain version's on the CPU."""
+def test_ring_on_card_matches_one_slot_and_plain(card, D, W, length, cov,
+                                                 index):
+    """The colshard's ring over D slots of one card (a bare "cuda", and
+    an explicit cuda:0, the one-slot mesh of an indexed run): X2's three
+    kernels once a slot, D - 1 hops, the scores integer-equal to one
+    slot's and to the plain version's on the CPU."""
     from pbdagcon_tpu_torch.ops import dp_blocked_cuda as C
     from pbdagcon_tpu_torch.parallel import colshard
-    from pbdagcon_tpu_torch.parallel.mesh import Mesh
+    from pbdagcon_tpu_torch.parallel.mesh import Mesh, make_mesh
 
+    if index is not None:
+        card = torch.device("cuda", index)
+        assert make_mesh(device=card).devices == (card,)
     arrs = next(a for a in (_target_band(s, length, cov, W)
                             for s in range(30, 45)) if a is not None)
     one = colshard.colsharded_scores(*arrs, Mesh((card,)))

@@ -54,6 +54,9 @@ _PORT_MODULES = (
     "ops.align_tpu", "ops.align_cuda", "hybrid", "dazcon",
     "ops.dp_blocked", "ops.dp_blocked_cuda", "parallel.colshard",
     "parallel.mesh", "parallel.scheduler",
+    # the high-depth, soak and multi-process tools
+    "tools.bench_highdepth", "tools.soak_stream", "tools.soak_devbuild",
+    "tools.soak_multirank", "tools.scaling_bench", "tools.oversize_cpu",
     # the copies of the JAX package's framework-free modules
     "alignment", "io", "oracle", "oracle.graph", "ops.linearize", "aligner",
     "simulate", "selfcheck", "ops.devbuild", "hgap", "dazzio",

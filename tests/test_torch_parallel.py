@@ -134,6 +134,74 @@ def test_make_mesh_slots_and_refusals():
     assert res.stdout.startswith("raised"), res.stdout
 
 
+def _two_cards(monkeypatch):
+    """Make the CPU build of torch report two visible cards."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+
+
+def test_make_mesh_of_an_indexed_card_is_one_slot(monkeypatch):
+    """A card with an index (`--device cuda:1`, a rank's card) is a
+    one-slot mesh on that card; a bare "cuda" keeps every visible card."""
+    import torch
+
+    _two_cards(monkeypatch)
+    for dev in ("cuda:1", torch.device("cuda", 1)):
+        assert make_mesh(device=dev).devices == (torch.device("cuda", 1),)
+    assert make_mesh(device="cuda:0").devices == (torch.device("cuda", 0),)
+    assert make_mesh(device="cuda").devices == (
+        torch.device("cuda", 0), torch.device("cuda", 1))
+    assert make_mesh(1, device="cuda").size == 1
+    with pytest.raises(ValueError):
+        make_mesh(device="cuda:2")
+    with pytest.raises(ValueError):
+        make_mesh(2, device="cuda:1")
+
+
+@pytest.mark.parametrize("device,want", [
+    ("cuda:1", ("cuda:1",)), ("cuda", ("cuda:0", "cuda:1"))])
+def test_oversize_route_asks_for_the_runs_card(monkeypatch, device, want):
+    """The oversize route's mesh follows the run's device: at cuda:1 one
+    slot on card 1, at a bare "cuda" every visible card. The mesh that
+    `make_mesh` returns is recorded, then the ring runs on as many CPU
+    slots, and the scores equal one CPU slot's."""
+    import torch
+
+    from pbdagcon_tpu_torch import native as tnative
+    from pbdagcon_tpu_torch import pipeline as tpipeline
+    from pbdagcon_tpu_torch.config import DagconConfig
+    from pbdagcon_tpu_torch.simulate import simulate_targets, to_m5
+
+    if not tnative.ensure_built():
+        pytest.skip("native engine not built")
+    _two_cards(monkeypatch)
+    asked = []
+
+    def record(n_devices=None, device="cuda"):
+        mesh = make_mesh(n_devices, device=device)
+        asked.append(mesh.devices)
+        return make_mesh(mesh.size, device="cpu")
+
+    monkeypatch.setattr(tpipeline, "make_mesh", record)
+    text = "".join(to_m5(a) + "\n" for _t, _b, alns in
+                   simulate_targets(22, 1, 500, 12) for a in alns).encode()
+    cfg = DagconConfig(backend="cuda", device="cpu", min_weight=3,
+                       min_length=50, threads=1)
+    with tnative.NativeEngine(min_weight=3, min_length=50, threads=1) as eng:
+        assert eng.linearize_text(text, flush=True) == 1
+        n, span = (int(x) for x in eng.metas(1)[0, :2])
+        got = tpipeline._colshard_oversize(
+            eng, 0, n, span, cfg, torch.device(device))
+        one = tpipeline._colshard_oversize(
+            eng, 0, n, span, cfg, torch.device("cpu"))
+    assert asked[0] == tuple(torch.device(d) for d in want)
+    assert asked[1] == (torch.device("cpu"),)
+    assert got is not None
+    np.testing.assert_array_equal(_bits(got), _bits(one))
+
+
 def test_shard_for_host_partition():
     items = list(range(20))
     shards = [
