@@ -57,9 +57,11 @@ Phases, in order; any failure exits non-zero before the last line:
    the launches of hist, scatter and dp_scan over the run each > 0.
    Prints the host fallbacks by reason and the stages' host-clock
    seconds.
-7. Kernel X1 (`csrc/align_scan.cu`: the aligner's scan and traceback)
-   against its plain versions, array-equal on the packed pointers and
-   the moves: the scan on both routes (`align_cuda.scan_plan`: "warp",
+7. Kernel X1 (`csrc/align_scan.cu`: the aligner's scan, traceback and
+   replay) against its plain versions, array-equal on the packed
+   pointers, the moves and the gapped rows with their path lengths (the
+   replay on every case below, and on the random pointers' moves over
+   random bases): the scan on both routes (`align_cuda.scan_plan`: "warp",
    a warp per pair, and "cta"; "cta" only where the spans outgrow a
    warp) and the traceback on both of its routes
    (`align_cuda.traceback_plan`: "warp", a warp per pair over staged
@@ -72,7 +74,11 @@ Phases, in order; any failure exits non-zero before the last line:
    beside the bound (bytes or int32 operations, whichever is larger)
    and the plain versions, each with its routes in turns (cta, warp,
    warp, cta; thread, warp, warp, thread), and the traceback also on
-   the batch's first 32 pairs (dazcon's rung).
+   the batch's first 32 pairs (dazcon's rung); the replay in turns with
+   its plain version (plain, kernel, kernel, plain; the kernel from a
+   CUDA graph of 20 calls) beside its byte bound; then `align_batch`'s
+   host clock on that batch in three parts (prepare; scan, traceback and
+   replay; fetch and decode), three times.
 8. The `-a` device path at full width: the bench workload through
    `run_stream` (cuda backend, align_backend "device") once, then with
    the host aligner once (no X1 launch), each FASTA byte-equal to the
@@ -153,8 +159,8 @@ hist and scatter with their launches on phase 13's ("highdepth",
 100x window's;
 align_scan with its route and the "cta" route's
 ms, align_traceback with its route, the "thread" route's ms, the chain
-figure (the longest path's steps, ns a step) and the B = 32 call), and
-the last line:
+figure (the longest path's steps, ns a step) and the B = 32 call,
+align_replay with its eager ms), and the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 """
 
@@ -926,7 +932,7 @@ def main() -> int:
     from pbdagcon_tpu_torch.ops import align_cuda, align_tpu
     from pbdagcon_tpu_torch.simulate import random_seq, sample_read
 
-    worst_a = {"align_scan": 0, "align_traceback": 0}
+    worst_a = {"align_scan": 0, "align_traceback": 0, "align_replay": 0}
 
     def x1_args(pairs, B=None):
         """The padded batch of `pairs` on the card, cut to its first B
@@ -936,11 +942,22 @@ def main() -> int:
         return p, [torch.from_numpy(np.ascontiguousarray(p[k][:B])).to(dev)
                    for k in ("qb", "tb_pad", "m", "n", "bw")]
 
+    def hold_replay(moves, qb, tb, m, n, dmin) -> bool:
+        """The replay kernel against its plain version on the same moves:
+        gq, gt and plen array-equal."""
+        got = align_cuda.replay_cuda(moves, qb, tb, m, n, dmin)
+        want = align_tpu.replay_plain(moves, qb, tb, m, n, dmin)
+        torch.cuda.synchronize()
+        worst_a["align_replay"] = max(worst_a["align_replay"], *(
+            int_err(g, w) for g, w in zip(got, want)))
+        return all(torch.equal(g, w) for g, w in zip(got, want))
+
     def hold_x1(pairs, what, B=None) -> tuple:
         """Both scan routes where the plan takes the batch ("cta" only
-        past a warp's span), each array-equal to the plain version, and
-        the traceback on both of its routes ("warp", the plan's, and
-        "thread"), each array-equal to the plain version."""
+        past a warp's span), each array-equal to the plain version, the
+        traceback on both of its routes ("warp", the plan's, and
+        "thread"), each array-equal to the plain version, and the replay
+        of the moves, array-equal to its plain version."""
         p, args = x1_args(pairs, B)
         M, Wa, dmin, L = p["M"], p["Wa"], p["dmin"], p["L"]
         auto = align_cuda.scan_plan(args[2], args[3], args[4], M, Wa, dmin)
@@ -963,13 +980,15 @@ def main() -> int:
         mv_want = align_tpu.traceback_plain(want, args[2], args[3], M, Wa,
                                             dmin, L)
         tb_oks, mv = hold_tb(got, args[2], args[3], M, Wa, dmin, L, mv_want)
-        ok = all(oks.values()) and all(tb_oks.values())
+        rp_ok = hold_replay(mv, args[0], args[1], args[2], args[3], dmin)
+        ok = all(oks.values()) and all(tb_oks.values()) and rp_ok
         log(f"X1 {what}: B={args[0].shape[0]} M={M} Wa={Wa} dmin={dmin} "
             f"L={L}, plan {auto['route']}; scan "
             + ", ".join(f"{r} {'array-equal' if v else 'MISMATCH'}"
                         for r, v in oks.items())
             + "; moves " + ", ".join(f"{r} {'equal' if v else 'MISMATCH'}"
-                                     for r, v in tb_oks.items()))
+                                     for r, v in tb_oks.items())
+            + f"; replay {'array-equal' if rp_ok else 'MISMATCH'}")
         if not ok:
             raise SystemExit(f"chip_smoke: X1 != plain version ({what})")
         return p, args, got, mv
@@ -1030,6 +1049,15 @@ def main() -> int:
         nq = torch.from_numpy(prng.integers(0, 501, Bq).astype(
             np.int32)).to(dev)
         want_q = align_tpu.traceback_plain(pk, mq, nq, Mq, Waq, dq, L_cut)
+        # Its moves replayed over random bases (rows off 16-byte
+        # boundaries where L_cut is 37).
+        qq_ = torch.from_numpy(prng.integers(65, 91, (Bq, Mq)).astype(
+            np.uint8)).to(dev)
+        tq_ = torch.from_numpy(prng.integers(65, 91, (Bq, 600)).astype(
+            np.uint8)).to(dev)
+        if not hold_replay(want_q, qq_, tq_, mq, nq, dq):
+            raise SystemExit(f"chip_smoke: X1 replay != plain version "
+                             f"(random moves {probs}, L={L_cut})")
         for kw in ({}, {"rows": 8, "window": 32}):
             oks, _ = hold_tb(pk, mq, nq, Mq, Waq, dq, L_cut, want_q, **kw)
             log(f"X1 traceback on random pointers {probs} (B={Bq} M={Mq} "
@@ -1082,6 +1110,22 @@ def main() -> int:
         pb = time_ms(p_fn, 1)
         x1[name] = {"ms": (ka + kb) / 2, "plain_ms": (pa + pb) / 2,
                     "turns": (pa, ka, kb, pb)}
+    # The replay of the batch's moves: its plain version eager, the
+    # kernel replayed from a CUDA graph of 20 copies (a call of a few
+    # microseconds would read the host's launch), in turns (plain,
+    # kernel, kernel, plain), and eager beside them.
+    rp_out = torch.empty(align_tpu.replay_bytes(len(p["m"]), L),
+                         dtype=torch.uint8, device=dev)
+    rp_args = (mv, args[0], args[1], args[2], args[3], dmin)
+    rp_k = lambda: align_cuda.replay_cuda(*rp_args, rp_out)
+    rp_p = lambda: align_tpu.replay_plain(*rp_args)
+    pa = time_ms(rp_p, 1)
+    ka = graph_ms(rp_k, 10, copies=20)
+    kb = graph_ms(rp_k, 10, copies=20)
+    pb_ = time_ms(rp_p, 1)
+    x1["align_replay"] = {"ms": (ka + kb) / 2, "plain_ms": (pa + pb_) / 2,
+                          "turns": (pa, ka, kb, pb_),
+                          "eager_ms": time_ms(rp_k, 10)}
     # The scan's routes in turns (cta, warp, warp, cta).
     ca = time_ms(scan_c, 10)
     wa = time_ms(scan_k, 10)
@@ -1145,40 +1189,54 @@ def main() -> int:
     Bb = len(p["m"])
     cells = roofline.band_cells(p["m"], p["n"], p["bw"])
     path_len = int(steps_np.sum())
+    # The replay: each path's moves and its first 3 (where the row has
+    # one), the bases the paths take (m + n a pair), m and n read once,
+    # the rows and path lengths written once; 6 int32 operations a path
+    # step (two compares, two running counts, two selects).
+    rp_rows = align_cuda.replay_cuda(*rp_args)
+    rp_work = roofline.Work(
+        path_len + int((steps_np < L).sum()) + int((p["m"] + p["n"]).sum())
+        + roofline.nbytes(args[2], args[3], *rp_rows), 6 * path_len)
     for name, work in (
             ("align_scan", roofline.align_scan(args, got, cells)),
             ("align_traceback", roofline.align_traceback(args[2], args[3], mv,
-                                                         path_len))):
+                                                         path_len)),
+            ("align_replay", rp_work)):
         nb_, ops = work.bytes, work.int32_ops
         t_bytes, t_ops = work.bytes_ms(), work.ops_ms()
         x1[name].update(bound_ms=work.bound_ms(), bound_by=work.bound_by(),
                         bytes=nb_, int32_ops=ops)
-        log(f"{name} at B={Bb} M={M} Wa={Wa} (rows {M}, lanes {Wa}; band cells "
-            f"{cells}, path steps {path_len}): kernel (warp route) "
+        log(f"{name} at B={Bb} M={M} Wa={Wa} L={L} (rows {M}, lanes {Wa}; band "
+            f"cells {cells}, path steps {path_len}): kernel "
+            f"({'graph-replayed' if name == 'align_replay' else 'warp route'}) "
             f"{x1[name]['turns'][1]} / "
             f"{x1[name]['turns'][2]} ms, plain PyTorch {x1[name]['turns'][0]} / "
             f"{x1[name]['turns'][3]} ms, bound {x1[name]['bound_ms']} ms "
             f"(bytes {nb_} -> {t_bytes} ms, int32 ops {ops} -> {t_ops} ms: "
             f"{x1[name]['bound_by']}) [{card}]")
-    # align_batch on the same batch, in its parts: the host preparation,
-    # the device part (upload, scan, traceback, moves back), the host
-    # replay into gapped strings.
-    t0 = time.perf_counter()
-    pb = align_tpu.prepare_batch(bench_pairs)
-    t1 = time.perf_counter()
-    mv_np = align_tpu.device_moves(pb, dev)
-    t2 = time.perf_counter()
-    gapped = align_tpu.replay_moves(bench_pairs, mv_np)
-    t3 = time.perf_counter()
-    log(f"align_batch of the bench batch, host clock: prepare "
-        f"{t1 - t0:.4f} s, device {t2 - t1:.4f} s, replay {t3 - t2:.4f} s "
-        f"[{card}]")
+    log(f"align_replay eager (each call launched from the host): "
+        f"{x1['align_replay']['eager_ms']} ms [{card}]")
+    # align_batch on the same batch, in its parts, three times: the host
+    # preparation, the device part (upload, scan, traceback, replay, to
+    # a synchronise), the fetch (one copy) and the host's decode.
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pb = align_tpu.prepare_batch(bench_pairs)
+        t1 = time.perf_counter()
+        flat = align_tpu.device_replay(pb, dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        gapped = align_tpu.fetch_gapped(flat, pb)
+        t3 = time.perf_counter()
+        log(f"align_batch of the bench batch, host clock: prepare "
+            f"{t1 - t0:.4f} s, scan + traceback + replay {t2 - t1:.4f} s, "
+            f"fetch + decode {t3 - t2:.4f} s [{card}]")
     if gapped != [align_pair(q, t) for q, t in bench_pairs[:64]] + gapped[64:]:
         raise SystemExit("chip_smoke: align_batch != align_pair (bench batch)")
     for line in _build.build_logs.get("align_scan", "").splitlines():
         if any(w in line for w in ("registers", "spill", "error", "entry")):
             log(f"  ptxas align_scan: {line.strip()}")
-    del args, got, mv
+    del args, got, mv, rp_args, rp_out, rp_rows
 
     phase("8")
     # ---- phase 8: the -a device path at full width ----
@@ -2062,15 +2120,20 @@ def main() -> int:
         "plain_ms": x1[name]["plain_ms"],
         "bound_ms": x1[name]["bound_ms"],
         "bound_by": x1[name]["bound_by"],
-        # No one PyTorch call computes a banded alignment scan or walk.
+        # No one PyTorch call computes a banded alignment scan, walk or
+        # replay of moves into gapped rows.
         "library_ms": None,
         **({"scan_route": "warp", "cta_ms": x1[name]["cta_ms"]}
            if name == "align_scan" else {
                "traceback_route": max(tb_routes, key=tb_routes.get),
                "thread_ms": x1[name]["thread_ms"],
                "chain": x1[name]["chain"],
-               "b32_call": x1[name]["b32_call"]}),
-    } for name, line in (("align_scan", 88), ("align_traceback", 47))] + [{
+               "b32_call": x1[name]["b32_call"]}
+           if name == "align_traceback" else {
+               "ms_from": "CUDA graph of 20 calls",
+               "eager_ms": x1[name]["eager_ms"]}),
+    } for name, line in (("align_scan", 88), ("align_traceback", 47),
+                         ("align_replay", 244))] + [{
         "name": name,
         "route": "cuda",
         "source": "pbdagcon_tpu_torch/csrc/dp_blocked.cu",

@@ -97,6 +97,16 @@
 // thread per pair, each step a dependent one-byte load from device
 // memory; kept for comparison, taken only by a forced plan.
 //
+// The replay (`align_replay_kernel`) turns the moves into the gapped
+// rows on the card: the reference's numpy replay inside `align_batch`
+// (`pbdagcon_tpu/ops/align_tpu.py:244-280`), whose contract is
+// `ops/align_tpu.py::replay_plain`, array-equal; the moves never leave
+// the card, and one copy brings the rows and path lengths back. A warp
+// per pair (see the kernel). It moves a few MB (the moves, the bases,
+// the rows) and does a few integer operations a position: microseconds
+// at the memory rate; its time is each warp's chain of chunks, a move
+// load, the ballots and a base load each.
+//
 // What bounds it on this card: the scan's M sequential rows. Per pair it
 // reads M + (M + Wa) bytes and writes M * Wa / 4, a few hundred KB, and
 // does ~20 integer operations per band cell; the whole batch's bytes
@@ -974,6 +984,119 @@ align_traceback_warp_kernel(const uint8_t* __restrict__ packed,
 #endif
 }
 
+// The replay: the moves into gapped rows, on the card beside the moves
+// the traceback wrote, so that only the rows and path lengths go to the
+// host. A warp per pair, REPLAY_WARPS pairs a CTA. The path length plen
+// is the first 3 of the row (L where there is none): lane t reads the
+// 16-byte chunk t of each 512 bytes (one uint4 where the row sits on a
+// 16-byte boundary, else bytes), finds its first 3 by the zero-byte test
+// on w ^ 0x03030303 (whose lowest flagged byte is always a true zero),
+// and a ballot gives the first lane that has one. Then the warp walks the
+// forward positions in chunks of REPLAY_SUB x 32, lane t taking position
+// p = p0 + 32 s + t, which reads move plen - 1 - p: a query base unless
+// the move is 2, a target base unless it is 1. Each lane's base index is
+// the popcount of the lower lanes' ballot plus the bases taken before
+// the step; the base (clamped to the row), '-' where none is taken, 0
+// past the path. The REPLAY_SUB steps of a chunk issue their move loads,
+// then their base loads, together. plen goes out as -1 where the path
+// did not take exactly m query and n target bases.
+constexpr int REPLAY_WARPS = 4;
+constexpr int REPLAY_SUB = 4;
+
+__global__ void __launch_bounds__(REPLAY_WARPS * 32)
+align_replay_kernel(const uint8_t* __restrict__ moves,
+                    const uint8_t* __restrict__ qb,
+                    const uint8_t* __restrict__ tb,
+                    const int* __restrict__ m_, const int* __restrict__ n_,
+                    uint8_t* __restrict__ gq, uint8_t* __restrict__ gt,
+                    int* __restrict__ plen_out, int B, int M, int T, int L,
+                    int dmin) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * REPLAY_WARPS + (threadIdx.x >> 5);
+  if (b >= B) return;
+  const uint8_t* mv = moves + (size_t)b * L;
+  const bool wide = ((uintptr_t)mv & 15) == 0;
+  int plen = L;
+  for (int base = 0; base < L; base += 32 * 16) {
+    const int c0 = base + 16 * lane;
+    int hit = 16;  // the first 3 of this lane's chunk; 16 for none
+    if (wide && c0 + 16 <= L) {
+      const uint4 v = *reinterpret_cast<const uint4*>(mv + c0);
+      const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int k = 3; k >= 0; --k) {
+        const unsigned x = w[k] ^ 0x03030303u;
+        const unsigned z = (x - 0x01010101u) & ~x & 0x80808080u;
+        if (z) hit = 4 * k + ((__ffs(z) - 1) >> 3);
+      }
+    } else {
+      for (int k = min(15, L - 1 - c0); k >= 0; --k) {
+        if (mv[c0 + k] == 3) hit = k;
+      }
+    }
+    const unsigned any = __ballot_sync(FULL, hit < 16);
+    if (any) {
+      const int src = __ffs(any) - 1;
+      plen = base + 16 * src + __shfl_sync(FULL, hit, src);
+      break;
+    }
+  }
+  const uint8_t* q = qb + (size_t)b * M;
+  const uint8_t* t = tb + (size_t)b * T;
+  uint8_t* oq = gq + (size_t)b * L;
+  uint8_t* ot = gt + (size_t)b * L;
+  const unsigned lower = (1u << lane) - 1u;
+  int cq = 0, ct = 0;  // the bases taken before this step
+  for (int p0 = 0; p0 < L; p0 += 32 * REPLAY_SUB) {
+    if (p0 >= plen) {  // past the path: 0s
+#pragma unroll
+      for (int s = 0; s < REPLAY_SUB; ++s) {
+        const int p = p0 + 32 * s + lane;
+        if (p < L) {
+          oq[p] = 0;
+          ot[p] = 0;
+        }
+      }
+      continue;
+    }
+    unsigned mvs[REPLAY_SUB];
+#pragma unroll
+    for (int s = 0; s < REPLAY_SUB; ++s) {
+      const int p = p0 + 32 * s + lane;
+      mvs[s] = p < plen ? mv[plen - 1 - p] : 3u;
+    }
+    int qx[REPLAY_SUB], tx[REPLAY_SUB];
+    unsigned takes = 0;  // bit 2s: a query base at step s; 2s + 1: a target
+#pragma unroll
+    for (int s = 0; s < REPLAY_SUB; ++s) {
+      const bool in = p0 + 32 * s + lane < plen;
+      const bool tq = in && mvs[s] != 2u;
+      const bool tt = in && mvs[s] != 1u;
+      const unsigned bq = __ballot_sync(FULL, tq);
+      const unsigned bt = __ballot_sync(FULL, tt);
+      qx[s] = min(cq + __popc(bq & lower), M - 1);
+      tx[s] = min(max(ct + __popc(bt & lower) + 1 - dmin, 0), T - 1);
+      cq += __popc(bq);
+      ct += __popc(bt);
+      takes |= (unsigned)tq << (2 * s) | (unsigned)tt << (2 * s + 1);
+    }
+#pragma unroll
+    for (int s = 0; s < REPLAY_SUB; ++s) {
+      const int p = p0 + 32 * s + lane;
+      const uint8_t gap = p < plen ? '-' : 0;
+      const uint8_t a = (takes >> (2 * s)) & 1u ? q[qx[s]] : gap;
+      const uint8_t c = (takes >> (2 * s + 1)) & 1u ? t[tx[s]] : gap;
+      if (p < L) {
+        oq[p] = a;
+        ot[p] = c;
+      }
+    }
+  }
+  if (lane == 0) {
+    plen_out[b] = (cq == m_[b] && ct == n_[b]) ? plen : -1;
+  }
+}
+
 // Dynamic shared memory of the "cta" route's CTA: two rows of Wa + 1
 // int32 and the warp totals (`ops/align_cuda.py::scan_smem` computes the
 // same).
@@ -1082,6 +1205,25 @@ int dagcon_align_traceback(const void* packed, const void* m, const void* n,
                            (cudaStream_t)stream>>>(
       (const uint8_t*)packed, (const int*)m, (const int*)n, (uint8_t*)moves,
       B, M, Wa, dmin, L);
+  return (int)cudaGetLastError();
+}
+
+// The replay of B move rows of L bytes into gq, gt ([B, L] each) and
+// plen ([B] int32, on a 4-byte boundary); qb [B, M], tb [B, T] with
+// M, T >= 1, L >= 1. Refuses anything else.
+int dagcon_align_replay(const void* moves, const void* qb, const void* tb,
+                        const void* m, const void* n, void* gq, void* gt,
+                        void* plen, int B, int M, int T, int L, int dmin,
+                        void* stream) {
+  if (B < 0 || M < 1 || T < 1 || L < 1 || (uintptr_t)plen % 4 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (B == 0) return 0;
+  align_replay_kernel<<<(B + REPLAY_WARPS - 1) / REPLAY_WARPS,
+                        32 * REPLAY_WARPS, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)moves, (const uint8_t*)qb, (const uint8_t*)tb,
+      (const int*)m, (const int*)n, (uint8_t*)gq, (uint8_t*)gt, (int*)plen,
+      B, M, T, L, dmin);
   return (int)cudaGetLastError();
 }
 

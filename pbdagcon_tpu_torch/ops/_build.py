@@ -134,6 +134,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         # (packed, m, n, moves, order, B, M, Wa, dmin, L, route, warps,
         # rows, window, smem, stream)
         lib.dagcon_align_traceback.argtypes = [vp] * 5 + [ci] * 10 + [vp]
+        lib.dagcon_align_replay.restype = ci
+        # (moves, qb, tb_pad, m, n, gq, gt, plen, B, M, T, L, dmin, stream)
+        lib.dagcon_align_replay.argtypes = [vp] * 8 + [ci] * 5 + [vp]
     if name == "dp_blocked":
         for fn, argtypes in (
             # (win, cov, unsup, eex, M, B, V, W, L, route, blocks,

@@ -2,14 +2,15 @@
 (`csrc/align_scan.cu`).
 
 `align_scan_cuda` replaces the XLA program
-`pbdagcon_tpu/ops/align_tpu.py::_align_scan` and `traceback_cuda`
-replaces `_traceback_scan`; the contracts are those of the plain PyTorch
-versions `ops/align_tpu.py::align_scan_plain` and `traceback_plain`,
-array-equal. Neither wrapper falls back to the plain version: each
-checks what it is given, raises on anything the kernel does not take,
-and raises if the build or the launch fails. Both launch on the current
-stream without synchronising; outputs are `torch.empty` (every byte is
-written).
+`pbdagcon_tpu/ops/align_tpu.py::_align_scan`, `traceback_cuda`
+replaces `_traceback_scan` and `replay_cuda` the numpy replay of the
+moves into gapped rows inside its `align_batch`; the contracts are those
+of the plain PyTorch versions `ops/align_tpu.py::align_scan_plain`,
+`traceback_plain` and `replay_plain`, array-equal. No wrapper falls
+back to the plain version: each checks what it is given, raises on
+anything the kernel does not take, and raises if the build or the
+launch fails. Each launches on the current stream without
+synchronising; outputs are `torch.empty` (every byte is written).
 
 The scan has two routes, chosen per batch by `scan_plan`: "warp" (a
 warp per pair over the pair's own lane span, `align_scan_warp_kernel`)
@@ -22,7 +23,8 @@ batch, and "thread" (a thread per pair over device memory,
 checks its plan and refuses one it does not take.
 
 `launches` counts each kernel's launches by name ("align_scan",
-"align_traceback"), and `traceback_routes` the traceback's by route.
+"align_traceback", "align_replay"), and `traceback_routes` the
+traceback's by route.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import torch
 
 from pbdagcon_tpu_torch.ops import _build, align_tpu
 
-launches = {"align_scan": 0, "align_traceback": 0}
+launches = {"align_scan": 0, "align_traceback": 0, "align_replay": 0}
 # The traceback's launches by route.
 traceback_routes = {"thread": 0, "warp": 0}
 
@@ -322,3 +324,49 @@ def traceback_cuda(
         launches["align_traceback"] += 1
         traceback_routes[plan["route"]] += 1
     return moves
+
+
+def replay_cuda(
+    moves: torch.Tensor,  # [B, L] uint8
+    qb: torch.Tensor,  # [B, M] uint8
+    tb_pad: torch.Tensor,  # [B, T] uint8
+    m: torch.Tensor,  # [B] int32
+    n: torch.Tensor,  # [B] int32
+    dmin: int,
+    out: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gapped rows gq, gt [B, L] uint8 and path lengths plen [B]
+    int32 of the move streams, by the kernel: views of one buffer of
+    `align_tpu.replay_bytes(B, L)` bytes (`out` where given), so that
+    one copy brings all three to the host."""
+    device = moves.device
+    if device.type != "cuda":
+        raise ValueError(f"replay_cuda needs CUDA tensors, got {device}")
+    if moves.dim() != 2 or qb.dim() != 2 or tb_pad.dim() != 2:
+        raise ValueError("moves, qb and tb_pad must be [B, L], [B, M] and "
+                         "[B, T]")
+    (B, L), M, T = moves.shape, qb.shape[1], tb_pad.shape[1]
+    if min(L, M, T) < 1:
+        raise ValueError(f"L, M and T must be >= 1, got {L}, {M}, {T}")
+    _check(moves, "moves", torch.uint8, (B, L), device)
+    _check(qb, "qb", torch.uint8, (B, M), device)
+    _check(tb_pad, "tb_pad", torch.uint8, (B, T), device)
+    for name, t in (("m", m), ("n", n)):
+        _check(t, name, torch.int32, (B,), device)
+    if out is None:
+        out = torch.empty(align_tpu.replay_bytes(B, L), dtype=torch.uint8,
+                          device=device)
+    _check(out, "out", torch.uint8, (align_tpu.replay_bytes(B, L),), device)
+    gq, gt, plen = align_tpu.replay_views(out, B, L)
+    lib = _build.load("align_scan")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.dagcon_align_replay(
+            moves.data_ptr(), qb.data_ptr(), tb_pad.data_ptr(), m.data_ptr(),
+            n.data_ptr(), gq.data_ptr(), gt.data_ptr(), plen.data_ptr(), B, M,
+            T, L, dmin, stream,
+        )
+    _build.check(lib, rc, "align_replay launch")
+    if B:
+        launches["align_replay"] += 1
+    return gq, gt, plen

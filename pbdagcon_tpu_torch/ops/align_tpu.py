@@ -5,9 +5,10 @@ path and of dazcon).
 `align_batch(pairs, device)` is byte-equal to `aligner.align_pair` for
 every pair. The host prepares the padded batch exactly as the reference
 does (M to 256s, dmin to 64s, Wa to 128s, B on the 32...2048 ladder), the
-device runs the row scan (`align_scan`: 2-bit traceback pointers) and the
-pointer walk (`traceback`: one move per step), and the host replays the
-moves into gapped strings, vectorised over the batch.
+device runs the row scan (`align_scan`: 2-bit traceback pointers), the
+pointer walk (`traceback`: one move per step) and the replay of the
+moves into gapped rows (`replay`), and one copy brings the rows and
+their path lengths to the host, which cuts and decodes them.
 
 The formulation is the reference's: lane k of row i holds column
 j = i + dmin + k, so the diagonal predecessor is the same lane of the
@@ -17,11 +18,12 @@ previous row and the up predecessor lane k + 1; the in-row left chain
 pair's band are masked to NEG each row; pointers take the priority
 diag > up > left.
 
-On a CUDA tensor `align_scan` and `traceback` launch kernel X1
-(`csrc/align_scan.cu`, through `ops/align_cuda.py`) or raise; on a CPU
-tensor they run the plain PyTorch versions `align_scan_plain` (a row
-loop with `torch.cummax`) and `traceback_plain`, which the tests hold
-against the reference's XLA programs.
+On a CUDA tensor `align_scan`, `traceback` and `replay` launch kernel
+X1 (`csrc/align_scan.cu`, through `ops/align_cuda.py`) or raise; on a
+CPU tensor they run the plain PyTorch versions `align_scan_plain` (a
+row loop with `torch.cummax`), `traceback_plain` and `replay_plain`,
+which the tests hold against the reference's XLA programs and its
+numpy replay.
 
 The band centre `c = i * n // m` is formed in 64 bits (`band_centre`),
 as `align_pair` forms it; the reference's device scan forms it in int32
@@ -575,10 +577,152 @@ def prepare_batch(pairs: list[tuple[str, str]]) -> dict:
     }
 
 
-def device_moves(p: dict, device) -> np.ndarray:
-    """The move streams [Bp, L] of a prepared batch (`prepare_batch`):
-    upload, scan and traceback on `device`, and only the ~(m + n)-byte
-    move streams back to the host."""
+# The replay's gap byte, and the 32-position steps of a chunk of the
+# replay kernel's forward walk (`REPLAY_SUB` in `csrc/align_scan.cu`).
+GAP_BYTE = ord("-")
+REPLAY_SUB = 4
+
+
+def replay_plain(
+    moves: torch.Tensor,  # [B, L] uint8: 0 diag, 1 up, 2 left, 3 done
+    qb: torch.Tensor,  # [B, M] uint8 query bytes (0 pad)
+    tb_pad: torch.Tensor,  # [B, T] uint8: t[x] at x + 1 - dmin, 0 pad
+    m: torch.Tensor,  # [B] int32
+    n: torch.Tensor,  # [B] int32
+    dmin: int,
+    out: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gapped rows of the move streams: the plain version of kernel
+    X1's replay. A row's path is its moves before the first 3 (all L
+    where there is none), in reverse order: forward position p reads
+    move plen - 1 - p, takes a query base unless the move is 2 (left)
+    and a target base unless it is 1 (up). Returns gq, gt [B, L] uint8
+    (the base taken, b"-" where none is, 0 past the path) and plen [B]
+    int32 (the path's length, or -1 where it does not take exactly m
+    query and n target bases: a fault upstream). A base index past the
+    row reads the row's last byte. The three are views of one buffer
+    (`replay_views`): `out` where given."""
+    B, L = moves.shape
+    M, T = qb.shape[1], tb_pad.shape[1]
+    if out is None:
+        out = torch.empty(replay_bytes(B, L), dtype=torch.uint8,
+                          device=moves.device)
+    gq, gt, plen = replay_views(out, B, L)
+    done = moves == 3
+    first = torch.where(done.any(dim=1), done.to(torch.uint8).argmax(dim=1),
+                        L)
+    pos = torch.arange(L, device=moves.device)[None]
+    fwd = moves.long().gather(1, torch.clamp(first[:, None] - 1 - pos, 0,
+                                             L - 1))
+    inpath = pos < first[:, None]
+    take_q = (fwd != 2) & inpath
+    take_t = (fwd != 1) & inpath
+    qi = torch.clamp(take_q.long().cumsum(dim=1) - 1, 0, M - 1)
+    ti = torch.clamp(take_t.long().cumsum(dim=1) - dmin, 0, T - 1)
+    gap = torch.where(inpath, GAP_BYTE, 0).to(torch.uint8)
+    gq.copy_(torch.where(take_q, qb.gather(1, qi), gap))
+    gt.copy_(torch.where(take_t, tb_pad.gather(1, ti), gap))
+    whole = (take_q.sum(dim=1) == m.long()) & (take_t.sum(dim=1) == n.long())
+    plen.copy_(torch.where(whole, first, -1))
+    return gq, gt, plen
+
+
+def replay_bytes(B: int, L: int) -> int:
+    """Bytes of the one buffer that holds a replay's outputs: gq, gt
+    ([B, L] uint8 each), then plen ([B] int32) from a 4-byte boundary."""
+    return -(-2 * B * L // 4) * 4 + 4 * B
+
+
+def replay_views(flat: torch.Tensor, B: int, L: int):
+    """gq, gt and plen as views of `flat` (`replay_bytes(B, L)` uint8),
+    so that one copy moves all three."""
+    at = replay_bytes(B, L) - 4 * B
+    return (flat[: B * L].view(B, L), flat[B * L: 2 * B * L].view(B, L),
+            flat[at:].view(torch.int32))
+
+
+def replay_warp_model(moves, qb, tb_pad, m, n, dmin: int):
+    """X1's replay kernel (`align_replay_kernel`) as a CPU model, lane by
+    lane: a warp per pair finds plen from 16-byte chunks of the row, one
+    a lane, the first 3 of a chunk by the word test for a zero byte of
+    `w ^ 0x03030303` and the first lane that has one by ballot; then it
+    walks forward positions in chunks of REPLAY_SUB x 32, one position a
+    lane a step, each lane's base index the popcount of the lower lanes'
+    ballot plus the counts so far. Array-equal to `replay_plain`."""
+    mv = moves.numpy()
+    B, L = mv.shape
+    M, T = qb.shape[1], tb_pad.shape[1]
+    q_np, t_np, m_np, n_np = (x.numpy() for x in (qb, tb_pad, m, n))
+    gq = np.zeros((B, L), np.uint8)
+    gt = np.zeros((B, L), np.uint8)
+    plen = np.zeros(B, np.int32)
+    lanes = np.arange(32)
+    lower = (1 << lanes) - 1
+    popc = np.vectorize(lambda x: bin(int(x)).count("1"))
+    for b in range(B):
+        row = mv[b]
+        first = L
+        for base in range(0, L, 32 * 16):
+            hit = np.full(32, 16)
+            for lane in range(32):
+                c0 = base + 16 * lane
+                chunk = row[c0: min(c0 + 16, L)]
+                if len(chunk) == 16:  # four words, as the kernel's uint4
+                    for k in range(3, -1, -1):
+                        w = int(chunk[4 * k: 4 * k + 4].view("<u4")[0])
+                        x = w ^ 0x03030303
+                        z = (x - 0x01010101) & ~x & 0x80808080
+                        if z:
+                            hit[lane] = 4 * k + ((z & -z).bit_length() - 1) // 8
+                else:
+                    for k in range(len(chunk) - 1, -1, -1):
+                        if chunk[k] == 3:
+                            hit[lane] = k
+            ballot = hit < 16
+            if ballot.any():
+                src = int(np.argmax(ballot))
+                first = base + 16 * src + int(hit[src])
+                break
+        cq = ct = 0
+        for p0 in range(0, L, 32 * REPLAY_SUB):
+            for s in range(REPLAY_SUB):
+                p = p0 + 32 * s + lanes
+                inpath = p < first
+                mvs = np.where(inpath, row[np.clip(first - 1 - p, 0, L - 1)],
+                               3)
+                tq, tt = inpath & (mvs != 2), inpath & (mvs != 1)
+                bq = int((tq.astype(np.int64) << lanes).sum())
+                bt = int((tt.astype(np.int64) << lanes).sum())
+                qx = np.minimum(cq + popc(bq & lower), M - 1)
+                tx = np.clip(ct + popc(bt & lower) + 1 - dmin, 0, T - 1)
+                cq += bin(bq).count("1")
+                ct += bin(bt).count("1")
+                gap = np.where(inpath, GAP_BYTE, 0)
+                a = np.where(tq, q_np[b, qx], gap)
+                c = np.where(tt, t_np[b, tx], gap)
+                keep = p < L
+                gq[b, p[keep]] = a[keep]
+                gt[b, p[keep]] = c[keep]
+        plen[b] = first if (cq == m_np[b] and ct == n_np[b]) else -1
+    return (torch.from_numpy(gq), torch.from_numpy(gt),
+            torch.from_numpy(plen))
+
+
+def replay(moves, qb, tb_pad, m, n, dmin: int, out=None):
+    """Kernel X1's replay on a CUDA tensor, its plain version on the
+    CPU: (gq, gt, plen), views of `out` where it is given."""
+    if moves.device.type == "cpu":
+        return replay_plain(moves, qb, tb_pad, m, n, dmin, out)
+    from pbdagcon_tpu_torch.ops import align_cuda
+
+    return align_cuda.replay_cuda(moves, qb, tb_pad, m, n, dmin, out)
+
+
+def device_replay(p: dict, device) -> torch.Tensor:
+    """A prepared batch (`prepare_batch`) aligned on `device`: upload,
+    scan, traceback and replay there, the moves never leaving it.
+    Returns the one buffer of the gapped rows and path lengths
+    (`replay_views`), on `device`."""
     dev = resolve_device(device)
     M, Wa, dmin, L = p["M"], p["Wa"], p["dmin"], p["L"]
     qb, tb, m, n, bw = (
@@ -591,43 +735,29 @@ def device_moves(p: dict, device) -> np.ndarray:
         plan = align_cuda.scan_plan(p["m"], p["n"], p["bw"], M, Wa, dmin)
         tb_plan = align_cuda.traceback_plan(p["m"], p["n"], M, Wa, L)
     packed = align_scan(qb, tb, m, n, bw, M, Wa, dmin, plan)
-    return traceback(packed, m, n, M, Wa, dmin, L, tb_plan).cpu().numpy()
+    moves = traceback(packed, m, n, M, Wa, dmin, L, tb_plan)
+    flat = torch.empty(replay_bytes(len(p["m"]), L), dtype=torch.uint8,
+                       device=dev)
+    replay(moves, qb, tb, m, n, dmin, flat)
+    return flat
 
 
-def replay_moves(
-    pairs: list[tuple[str, str]], moves: np.ndarray
-) -> list[tuple[str, str]]:
-    """Gapped (q, t) strings of the non-empty `pairs` from their move
-    streams (the first len(pairs) rows of `moves`), vectorised over the
-    batch: reverse each row by its own path length, cumsum-index into
-    the concatenated sequences, slice per pair."""
-    Bt = len(pairs)
-    mv = moves[:Bt]
-    has_done = (mv == 3).any(axis=1)
-    plen = np.where(has_done, np.argmax(mv == 3, axis=1), mv.shape[1])
-    pos = np.arange(mv.shape[1])[None, :]
-    rev_idx = np.clip(plen[:, None] - 1 - pos, 0, mv.shape[1] - 1)
-    fwd = np.take_along_axis(mv, rev_idx, axis=1)
-    inpath = pos < plen[:, None]
-    take_q = (fwd != 2) & inpath
-    take_t = (fwd != 1) & inpath
-    qcat = np.frombuffer("".join(q for q, _ in pairs).encode(), np.uint8)
-    tcat = np.frombuffer("".join(t for _, t in pairs).encode(), np.uint8)
-    ms = np.array([len(q) for q, _ in pairs], dtype=np.int64)
-    ns = np.array([len(t) for _, t in pairs], dtype=np.int64)
-    qoff = np.zeros(Bt, np.int64)
-    toff = np.zeros(Bt, np.int64)
-    np.cumsum(ms[:-1], out=qoff[1:])
-    np.cumsum(ns[:-1], out=toff[1:])
-    qi = np.cumsum(take_q, axis=1) - 1 + qoff[:, None]
-    ti = np.cumsum(take_t, axis=1) - 1 + toff[:, None]
-    gap = np.uint8(ord("-"))
-    qs2 = np.where(take_q, qcat[np.clip(qi, 0, len(qcat) - 1)], gap)
-    ts2 = np.where(take_t, tcat[np.clip(ti, 0, len(tcat) - 1)], gap)
-    return [
-        (qs2[r, :ln].tobytes().decode(), ts2[r, :ln].tobytes().decode())
-        for r, ln in enumerate(plen.tolist())
-    ]
+def fetch_gapped(flat: torch.Tensor, p: dict) -> list[tuple[str, str]]:
+    """The gapped (q, t) strings of the batch's real pairs from
+    `device_replay`'s buffer: one copy to the host, each row cut to its
+    path length and decoded. Raises where a path did not take exactly
+    its pair's bases."""
+    B, Bp, L = p["B"], len(p["m"]), p["L"]
+    host = flat.cpu()
+    plen = replay_views(host, Bp, L)[2][:B].tolist()
+    if min(plen) < 0:
+        raise RuntimeError(f"align_batch: the path of pair "
+                           f"{plen.index(-1)} does not take its pair's "
+                           f"bases (a traceback fault)")
+    raw = host.numpy().tobytes()
+    return [(raw[r * L: r * L + ln].decode(),
+             raw[(Bp + r) * L: (Bp + r) * L + ln].decode())
+            for r, ln in enumerate(plen)]
 
 
 def align_batch(
@@ -646,8 +776,7 @@ def align_batch(
         else:
             todo.append(k)
     if todo:
-        real = [pairs[k] for k in todo]
-        moves = device_moves(prepare_batch(real), device)
-        for k, gapped in zip(todo, replay_moves(real, moves)):
+        p = prepare_batch([pairs[k] for k in todo])
+        for k, gapped in zip(todo, fetch_gapped(device_replay(p, device), p)):
             out[k] = gapped
     return out  # type: ignore[return-value]

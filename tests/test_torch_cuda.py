@@ -693,14 +693,17 @@ def test_align_kernels_match_plain_versions(card, case, route, tb_route):
     packed = align_tpu.align_scan(*args, M, Wa, dmin, plan)
     moves = align_tpu.traceback(packed, args[2], args[3], M, Wa, dmin, L,
                                 tb_plan)
+    rows = align_tpu.replay(moves, *args[:4], dmin)
     assert align_cuda.launches == {k: v + 1 for k, v in before.items()}
     routes[tb_route] += 1
     assert align_cuda.traceback_routes == routes
     want = align_tpu.align_scan_plain(*args, M, Wa, dmin)
     want_mv = align_tpu.traceback_plain(want, args[2], args[3], M, Wa, dmin, L)
+    want_rows = align_tpu.replay_plain(want_mv, *args[:4], dmin)
     torch.cuda.synchronize()
     assert torch.equal(packed, want)
     assert torch.equal(moves, want_mv)
+    assert all(torch.equal(g, w) for g, w in zip(rows, want_rows))
     assert align_tpu.align_batch(pairs, card) == [
         align_pair(q, t) for q, t in pairs]
 
@@ -894,6 +897,117 @@ def test_align_wrappers_reject_what_they_do_not_take(card):
     with pytest.raises(ValueError):  # packed of another width
         align_cuda.traceback_cuda(packed[:, :, 1:].contiguous(), m, n, M,
                                   Wa, dmin, p["L"])
+    assert align_cuda.launches == before
+
+
+def _bench_pairs(n=1024):
+    """The first n raw records of the bench workload (512 targets x 1000
+    bp x 30x, seed 1234), as `chip_smoke.py` makes it: the simulator's
+    targets come one after another from one generator."""
+    from pbdagcon_tpu_torch.simulate import to_pre_raw
+
+    out = []
+    for _tid, _bb, alns in simulate_targets(1234, 512, 1000, 30,
+                                            NoiseProfile()):
+        out += [to_pre_raw(a).split()[5:7] for a in alns]
+        if len(out) >= n:
+            return [tuple(f) for f in out[:n]]
+    raise AssertionError("the workload has fewer records")
+
+
+@pytest.mark.parametrize("case", ["random", "skew", "identical", "single",
+                                  "ladder", "bench"])
+def test_align_replay_matches_plain_version(card, case):
+    """The replay kernel on the kernels' own moves, array-equal to its
+    plain version (gq, gt, plen), one launch a call; the rows equal
+    `align_pair`'s (the bench batch's first 64). "ladder" keeps the
+    padding rows of B = 64 (m = n = 1)."""
+    from pbdagcon_tpu_torch.aligner import align_pair
+    from pbdagcon_tpu_torch.ops import align_cuda, align_tpu
+
+    pairs = {"single": lambda: [("A", "A"), ("A", "C"), ("G", "TTA"),
+                                ("CGT", "G")],
+             "ladder": lambda: _align_pairs("random")[:37],
+             "bench": _bench_pairs}.get(case, lambda: _align_pairs(case))()
+    p = align_tpu.prepare_batch(pairs)
+    B = len(p["m"]) if case == "ladder" else len(pairs)
+    args = [torch.from_numpy(np.ascontiguousarray(p[k][:B])).to(card)
+            for k in ("qb", "tb_pad", "m", "n", "bw")]
+    M, Wa, dmin, L = p["M"], p["Wa"], p["dmin"], p["L"]
+    packed = align_tpu.align_scan(*args, M, Wa, dmin)
+    moves = align_tpu.traceback(packed, args[2], args[3], M, Wa, dmin, L)
+    before = align_cuda.launches["align_replay"]
+    got = align_cuda.replay_cuda(moves, *args[:4], dmin)
+    assert align_cuda.launches["align_replay"] == before + 1
+    want = align_tpu.replay_plain(moves, *args[:4], dmin)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    gq, gt, plen = (x.cpu() for x in got)
+    k = min(len(pairs), 64)
+    rows = [(bytes(gq[r, :ln].tolist()).decode(),
+             bytes(gt[r, :ln].tolist()).decode())
+            for r, ln in enumerate(plen[:k].tolist())]
+    assert rows == [align_pair(q, t) for q, t in pairs[:k]]
+
+
+@pytest.mark.parametrize("L", [1, 17, 37, 130, 600])
+def test_align_replay_on_constructed_moves(card, L):
+    """Paths ending on either side of every chunk edge (the CPU model's
+    cases, tests/test_torch_replay.py), all-up and all-left paths, moves
+    of any value past the first 3, rows off 16-byte boundaries (L off
+    16), m and n one off on odd rows (plen -1); B = 1 and B = 41."""
+    from pbdagcon_tpu_torch.ops import align_cuda, align_tpu
+
+    rng = np.random.default_rng(L)
+    for B in (1, 41):
+        mv = rng.integers(0, 3, (B, L)).astype(np.uint8)
+        for r in range(B):
+            e = int(rng.integers(0, L + 1))
+            if r % 3 == 1:
+                mv[r, :e] = 1 + r % 2  # all up or all left
+            if e < L:
+                mv[r, e] = 3
+                mv[r, e + 1:] = rng.integers(0, 256, L - e - 1)
+        path = [row[: (list(row).index(3) if 3 in row else L)] for row in mv]
+        m = np.array([(x != 2).sum() + r % 2 for r, x in enumerate(path)],
+                     np.int32)
+        n = np.array([(x != 1).sum() for x in path], np.int32)
+        qb = rng.integers(65, 91, (B, 700)).astype(np.uint8)
+        tb = rng.integers(65, 91, (B, 800)).astype(np.uint8)
+        cpu = [torch.from_numpy(x) for x in (mv, qb, tb, m, n)]
+        want = align_tpu.replay_plain(*cpu, -64)
+        got = align_cuda.replay_cuda(*(x.to(card) for x in cpu), -64)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), (B, L)
+
+
+def test_align_replay_rejects_what_it_does_not_take(card):
+    from pbdagcon_tpu_torch.ops import align_cuda, align_tpu
+
+    B, L, M, T = 5, 40, 30, 50
+    mv = torch.zeros((B, L), dtype=torch.uint8, device=card)
+    qb = torch.zeros((B, M), dtype=torch.uint8, device=card)
+    tb = torch.zeros((B, T), dtype=torch.uint8, device=card)
+    mn = torch.ones(B, dtype=torch.int32, device=card)
+    before = dict(align_cuda.launches)
+    with pytest.raises(TypeError):  # moves not uint8
+        align_cuda.replay_cuda(mv.int(), qb, tb, mn, mn, -64)
+    with pytest.raises(TypeError):  # m not int32
+        align_cuda.replay_cuda(mv, qb, tb, mn.long(), mn, -64)
+    with pytest.raises(ValueError):  # qb of another B
+        align_cuda.replay_cuda(mv, qb[:4], tb, mn, mn, -64)
+    with pytest.raises(ValueError):  # no query bytes
+        align_cuda.replay_cuda(mv, qb[:, :0].contiguous(), tb, mn, mn, -64)
+    with pytest.raises(ValueError):  # a CPU tensor: no fallback
+        align_cuda.replay_cuda(mv.cpu(), qb.cpu(), tb.cpu(), mn.cpu(),
+                               mn.cpu(), -64)
+    with pytest.raises(ValueError):  # not contiguous
+        align_cuda.replay_cuda(mv.t().contiguous().t(), qb, tb, mn, mn, -64)
+    with pytest.raises(ValueError):  # an out buffer of another size
+        align_cuda.replay_cuda(mv, qb, tb, mn, mn, -64, torch.empty(
+            align_tpu.replay_bytes(B, L) - 4, dtype=torch.uint8, device=card))
     assert align_cuda.launches == before
 
 
