@@ -92,7 +92,17 @@ Phases, in order; any failure exits non-zero before the last line:
 10. The hybrid scheduler on the bench workload: forced device pulls
    (device chunks, hist, scatter and dp_scan launches > 0), defaults,
    and no probe deferral; each FASTA byte-equal, the chunk split, b/s
-   and the device worker's first-use warmup printed.
+   and the device worker's first-use warmup printed. Then the default
+   backend, "auto", there: the hybrid scheduler (host chunks > 0), and
+   with DAGCON_AUTO_HYBRID=0 the batched DP (dp_scan launches, no
+   hybrid chunk). Then a long stream past the probe deferral: the bench
+   workload replayed with fresh target ids (`tools/auto_turns.py`'s
+   `ReplayStream`, a copy at a time) for about LONG_S s of the host
+   engine's work, "host" then "auto": both byte-equal to the 1-thread
+   engine (its FASTA of one copy with each copy's ids, a rule held first
+   on two copies of 32 targets), the auto run with device chunks and
+   dp_scan, hist and scatter launches > 0; the auto/host ratio printed
+   beside the reference's 0.9 guard, not gated.
 11. Kernel X2 (`csrc/dp_blocked.cu`: the blocked max-plus solve's
    compose, propagate and fill) against its plain versions: each
    kernel's output integer-equal (the compose, the propagate and the
@@ -155,8 +165,9 @@ and W;
 dp_scan and X2's three with their launches on phase 12's paths ("sharded",
 "ring"), the sharded DP's turns and the ring's hops and times; dp_scan,
 hist and scatter with their launches on phase 13's ("highdepth",
-"soak"), dp_scan with config #3's readings, hist and scatter with the
-100x window's;
+"soak") and on phase 10's "auto" runs ("auto_bench": the bench workload;
+"hybrid_long": the long stream), dp_scan with config #3's readings, hist
+and scatter with the 100x window's;
 align_scan with its route and the "cta" route's
 ms, align_traceback with its route, the "thread" route's ms, the chain
 figure (the longest path's steps, ns a step) and the B = 32 call,
@@ -169,6 +180,7 @@ from __future__ import annotations
 import dataclasses
 import io
 import json
+import math
 import os
 import random
 import shutil
@@ -186,6 +198,9 @@ KERNEL_SOURCES = ("dp_scan", "hist_scatter", "pk_variants", "align_scan",
                   "dp_blocked")
 # The oversize cell (phase 11): every target past the top V bucket.
 OVERSIZE_TARGETS, OVERSIZE_LENGTH = 64, 8000
+# Phase 10's long stream: about this many seconds of the host engine's
+# work (the bench workload replayed with fresh target ids).
+LONG_S = 40
 # The hybrid run of phase 10 in a fresh process with an empty kernel
 # build directory (argv: that directory, the config's knobs as JSON):
 # prints one JSON line [cold, warm] of the two runs' device statistics.
@@ -1374,32 +1389,31 @@ def main() -> int:
     hcfg = dataclasses.replace(cfg, backend="hybrid",
                                batch_targets=DEVBUILD_BATCH)
 
-    def first_use_warmup(st, warm_spb=None) -> str:
+    from pbdagcon_tpu_torch.tools import auto_turns
+
+    def first_use_warmup(st) -> str:
         """The first device chunk's seconds less what its bytes take at
         the device's later (warm) rate."""
-        rest_b = st.hybrid_dev_bytes - st.hybrid_dev_first_bytes
-        if warm_spb is None and rest_b > 0:
-            warm_spb = (st.hybrid_dev_busy_s - st.hybrid_dev_first_s) / rest_b
-        if warm_spb is None or not st.hybrid_dev_chunks:
-            return "not measured (no later device chunk)"
-        return f"{st.hybrid_dev_first_s - st.hybrid_dev_first_bytes * warm_spb:.4f} s"
+        w = auto_turns.first_use_warmup(st)
+        return ("not measured (no later device chunk)" if w is None
+                else f"{w:.4f} s")
 
-    # Forced: every pull goes to the device, in chunks of 512 KB with no
-    # hedging, so the device takes several chunks and its warm rate shows.
-    for label, env in (("forced", {"DAGCON_HYBRID_FORCE_DEV": "1",
-                                   "DAGCON_HYBRID_CHUNK_KB": "512",
-                                   "DAGCON_HYBRID_HEDGE": "0"}),
-                       ("defaults", {}),
-                       ("probe_defer_0", {"DAGCON_HYBRID_PROBE_DEFER_S": "0"})):
+    def run_env(c, env, stream):
+        """One run of `c` under the environment `env` (None unsets), the
+        B1-B3 counts set to 0 just before: (stats, seconds, FASTA,
+        launches)."""
         saved = {k: os.environ.get(k) for k in env}
-        os.environ.update(env)
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
         dp_cuda.launches = 0
         mxu_cuda.launches.update(hist=0, scatter=0)
         try:
             out = io.StringIO()
             t0 = time.time()
-            st = run_stream(io.TextIOWrapper(io.BytesIO(text)), FastaWriter(out),
-                            hcfg)
+            st = run_stream(stream, FastaWriter(out), c)
             torch.cuda.synchronize()
             dt = time.time() - t0
         finally:
@@ -1408,18 +1422,31 @@ def main() -> int:
                     os.environ.pop(k, None)
                 else:
                     os.environ[k] = v
-        hl = {"dp_scan": dp_cuda.launches, **mxu_cuda.launches}
-        if out.getvalue() != fasta_host or st.targets != TARGETS:
+        return st, dt, out.getvalue(), {"dp_scan": dp_cuda.launches,
+                                        **mxu_cuda.launches}
+
+    def chunk_line(st) -> str:
+        return (f"host/device chunks {st.hybrid_host_chunks}/"
+                f"{st.hybrid_dev_chunks} (bytes {st.hybrid_host_bytes}/"
+                f"{st.hybrid_dev_bytes}; busy s {st.hybrid_host_busy_s:.4f}/"
+                f"{st.hybrid_dev_busy_s:.4f})")
+
+    # Forced: every pull goes to the device, in chunks of 512 KB with no
+    # hedging, so the device takes several chunks and its warm rate shows.
+    for label, env in (("forced", {"DAGCON_HYBRID_FORCE_DEV": "1",
+                                   "DAGCON_HYBRID_CHUNK_KB": "512",
+                                   "DAGCON_HYBRID_HEDGE": "0"}),
+                       ("defaults", {}),
+                       ("probe_defer_0", {"DAGCON_HYBRID_PROBE_DEFER_S": "0"})):
+        st, dt, got, hl = run_env(hcfg, env, io.TextIOWrapper(io.BytesIO(text)))
+        if got != fasta_host or st.targets != TARGETS:
             raise SystemExit(f"chip_smoke: hybrid ({label}) FASTA != "
                              "single-core C++")
         if label == "forced" and (st.hybrid_dev_chunks == 0
                                   or any(v == 0 for v in hl.values())):
             raise SystemExit(f"chip_smoke: forced hybrid did not run the "
                              f"device ({st.hybrid_dev_chunks} chunks, {hl})")
-        log(f"hybrid {label}: host/device chunks {st.hybrid_host_chunks}/"
-            f"{st.hybrid_dev_chunks} (bytes {st.hybrid_host_bytes}/"
-            f"{st.hybrid_dev_bytes}; busy s {st.hybrid_host_busy_s:.4f}/"
-            f"{st.hybrid_dev_busy_s:.4f}), {bases / dt:.1f} b/s (wall "
+        log(f"hybrid {label}: {chunk_line(st)}, {bases / dt:.1f} b/s (wall "
             f"{dt:.4f} s), launches {hl}; device first chunk "
             f"{st.hybrid_dev_first_s:.4f} s for {st.hybrid_dev_first_bytes} "
             f"bytes, warmup in this (warm) process {first_use_warmup(st)}; "
@@ -1463,6 +1490,84 @@ def main() -> int:
         f"{cold['wall']:.4f} s, warm {warm['wall']:.4f} s "
         f"(host/device chunks {cold['host_chunks']}/{cold['dev_chunks']}, "
         f"{warm['host_chunks']}/{warm['dev_chunks']}) [{card}]")
+
+    # The default backend, "auto", on the card with the native engine:
+    # the hybrid scheduler (host-only here, by the probe deferral); with
+    # DAGCON_AUTO_HYBRID=0 the batched DP ("cuda").
+    auto_cfg = dataclasses.replace(hcfg, backend=DagconConfig().backend)
+    auto_launches = {"dp_scan": 0, "hist": 0, "scatter": 0}
+    for label, env in (("auto", {"DAGCON_AUTO_HYBRID": None}),
+                       ("auto, DAGCON_AUTO_HYBRID=0",
+                        {"DAGCON_AUTO_HYBRID": "0"})):
+        st, dt, got, hl = run_env(auto_cfg, env,
+                                  io.TextIOWrapper(io.BytesIO(text)))
+        for k, v in hl.items():
+            auto_launches[k] += v
+        if got != fasta_host or st.targets != TARGETS:
+            raise SystemExit(f"chip_smoke: {label} FASTA != single-core C++")
+        hybrid_ran = st.hybrid_host_chunks + st.hybrid_dev_chunks > 0
+        if "=0" in label and (hybrid_ran or hl["dp_scan"] == 0):
+            raise SystemExit(f"chip_smoke: {label} did not take cuda "
+                             f"({chunk_line(st)}, {hl})")
+        if "=0" not in label and st.hybrid_host_chunks == 0:
+            raise SystemExit(f"chip_smoke: {label} did not take the hybrid "
+                             f"scheduler ({chunk_line(st)}, {hl})")
+        log(f"backend {label} on the bench workload: "
+            f"{'hybrid' if hybrid_ran else 'cuda'}, {chunk_line(st)}, "
+            f"{bases / dt:.1f} b/s (wall {dt:.4f} s), launches {hl}; FASTA "
+            f"byte-equal [{card}]")
+
+    # A long stream, past the probe deferral: the bench workload (the
+    # first 512 targets of the benchmark's cfg2-batched) replayed with
+    # fresh target ids, made a copy at a time, about LONG_S s of the host
+    # engine's work; "host", then "auto". The expected FASTA is the
+    # 1-thread engine's of one copy with each copy's ids, a rule first
+    # held against the 1-thread engine on two copies of 32 targets.
+    segs = auto_turns.sid_segments(text, "pre")
+    fsegs = auto_turns.fasta_segments(fasta_host)
+    head = ("\n".join(lines[:32 * COVERAGE]) + "\n").encode()
+    with native.NativeEngine(min_weight=min_weight, min_length=100,
+                             threads=1, align=True) as eng:
+        head_fa = eng.consensus_text(head, fmt="pre")
+        two = eng.consensus_text(
+            auto_turns.ReplayStream(auto_turns.sid_segments(head, "pre"),
+                                    2).read(), fmt="pre")
+    if not auto_turns.check_replayed(two, auto_turns.fasta_segments(head_fa),
+                                     2):
+        raise SystemExit("chip_smoke: a replayed copy's FASTA is not the "
+                         "1-thread engine's with the copy's ids")
+    st, dt, got, _ = run_env(dataclasses.replace(hcfg, backend="host"), {},
+                             io.TextIOWrapper(io.BytesIO(text)))
+    copies = max(2, math.ceil(LONG_S / dt))
+    long = {}
+    for b in ("host", "auto"):
+        st, dt, got, hl = run_env(
+            dataclasses.replace(hcfg, backend=b), {"DAGCON_AUTO_HYBRID": None},
+            auto_turns.ReplayStream(segs, copies))
+        if not auto_turns.check_replayed(got, fsegs, copies):
+            raise SystemExit(f"chip_smoke: long stream {b} FASTA != "
+                             "single-core C++")
+        long[b] = (st, dt, hl)
+    st, dt, hl = long["auto"]
+    if st.hybrid_dev_chunks == 0 or any(v == 0 for v in hl.values()):
+        raise SystemExit(f"chip_smoke: the long stream's auto run gave the "
+                         f"device no chunk or launched no kernel "
+                         f"({chunk_line(st)}, {hl})")
+    hybrid_long_launches = hl
+    long_bases = copies * bases
+    host_rate = long_bases / long["host"][1]
+    attr = (f"{st.hybrid_dev_bases / st.hybrid_dev_busy_s:.1f} b/s"
+            if st.hybrid_dev_busy_s > 0 else "not measured")
+    log(f"long stream ({copies} copies, {copies * TARGETS} targets, "
+        f"{copies * len(text)} bytes): host {host_rate:.1f} b/s (wall "
+        f"{long['host'][1]:.4f} s); auto {long_bases / dt:.1f} b/s (wall "
+        f"{dt:.4f} s), {chunk_line(st)}, device bases "
+        f"{st.hybrid_dev_bases}, device-attributable {attr}, first device "
+        f"chunk {st.hybrid_dev_first_s:.4f} s for "
+        f"{st.hybrid_dev_first_bytes} bytes, first-use warmup "
+        f"{first_use_warmup(st)}, launches {hl}; auto/host "
+        f"{long['host'][1] / dt:.4f} (the reference's guard: >= 0.9, not "
+        f"gated here); both FASTAs byte-equal [{card}]")
 
     phase("11")
     # ---- phase 11: kernel X2 (the blocked solve), colshard, "blocked" ----
@@ -2027,14 +2132,17 @@ def main() -> int:
         "launches": cuda_path_launches + dev_launches["dp_scan"]
         + blocked_launches["dp_scan"] + colshard_launches["dp_scan"]
         + sharded_launches + hd_launches["dp_scan"]
-        + soak_launches.get("dp_scan", 0),
+        + soak_launches.get("dp_scan", 0) + auto_launches["dp_scan"]
+        + hybrid_long_launches["dp_scan"],
         "launches_by_path": {"cuda": cuda_path_launches,
                              "devbuild": dev_launches["dp_scan"],
                              "blocked": blocked_launches["dp_scan"],
                              "colshard": colshard_launches["dp_scan"],
                              "sharded": sharded_launches,
                              "highdepth": hd_launches["dp_scan"],
-                             "soak": soak_launches.get("dp_scan", 0)},
+                             "soak": soak_launches.get("dp_scan", 0),
+                             "auto_bench": auto_launches["dp_scan"],
+                             "hybrid_long": hybrid_long_launches["dp_scan"]},
         "highdepth": {"exec_only": ex, "window": held,
                       "by_cov": {c: {b: {k: r[k] for k in (
                           "bases_per_s", "vs_1core", "fallback_reasons",
@@ -2058,10 +2166,13 @@ def main() -> int:
         "source": "pbdagcon_tpu_torch/csrc/hist_scatter.cu",
         "replaces": "pbdagcon_tpu/ops/mxu.py:60",
         "launches": dev_launches["hist"] + hd_launches["hist"]
-        + soak_launches.get("hist", 0),
+        + soak_launches.get("hist", 0) + auto_launches["hist"]
+        + hybrid_long_launches["hist"],
         "launches_by_path": {"devbuild": dev_launches["hist"],
                              "highdepth": hd_launches["hist"],
-                             "soak": soak_launches.get("hist", 0)},
+                             "soak": soak_launches.get("hist", 0),
+                             "auto_bench": auto_launches["hist"],
+                             "hybrid_long": hybrid_long_launches["hist"]},
         "highdepth_window": {"R": held["R"], "calls": held["held"]["hist"],
                              "max_abs_err": held["worst"]["hist"]},
         "max_abs_err": max(worst_k["hist"], held["worst"]["hist"]),
@@ -2078,10 +2189,13 @@ def main() -> int:
         "source": "pbdagcon_tpu_torch/csrc/hist_scatter.cu",
         "replaces": "pbdagcon_tpu/ops/mxu.py:305",
         "launches": dev_launches["scatter"] + hd_launches["scatter"]
-        + soak_launches.get("scatter", 0),
+        + soak_launches.get("scatter", 0) + auto_launches["scatter"]
+        + hybrid_long_launches["scatter"],
         "launches_by_path": {"devbuild": dev_launches["scatter"],
                              "highdepth": hd_launches["scatter"],
-                             "soak": soak_launches.get("scatter", 0)},
+                             "soak": soak_launches.get("scatter", 0),
+                             "auto_bench": auto_launches["scatter"],
+                             "hybrid_long": hybrid_long_launches["scatter"]},
         "highdepth_window": {"R": held["R"], "calls": held["held"]["scatter"],
                              "max_abs_err": held["worst"]["scatter"]},
         "max_abs_err": max(worst_k["scatter"], held["worst"]["scatter"]),

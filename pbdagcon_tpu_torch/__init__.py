@@ -14,8 +14,9 @@ Layer map (slices: the native-loader consensus path, the devbuild path,
 the kernel-variant microbench, the device aligner, the frontends, the
 hybrid scheduler):
 
-- `config`    : `DagconConfig` (backends "cuda", "devbuild", "hybrid",
-                "host", "auto"; aligners "host", "device").
+- `config`    : `DagconConfig` (backends "cuda", "blocked", "devbuild",
+                "hybrid", "host", "auto": hybrid on a card with the
+                native engine, else cuda; aligners "host", "device").
 - `pipeline`  : stream -> native linearize -> batched DP -> native
                 backtrack + FASTA (`run_stream`), the device
                 re-alignment (`device_align_stream`), and the devbuild

@@ -80,7 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
         "flagged rows through the DP kernel), devbuild "
         "(graph build, DP and backtrack on the device), hybrid (host "
         "engine and devbuild side by side, rate-adaptive), host (native "
-        "engine only); auto = cuda",
+        "engine only); auto = hybrid on a card with the native engine "
+        "(DAGCON_AUTO_HYBRID=0 opts out), else cuda",
     )
     p.add_argument(
         "--device", default="cuda",
@@ -91,7 +92,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--align-backend", choices=("host", "device"), default="host",
         help="where -a re-alignment runs: threaded C++ banded DP (host) "
         "or the batched device kernel (device; raw 'pre' records on the "
-        "cuda backend); both are exact",
+        "cuda and blocked backends: auto on a card runs hybrid, which "
+        "aligns on the host); both are exact",
     )
     p.add_argument(
         "--align-scorer", choices=("simple", "affine"), default="simple",

@@ -9,11 +9,12 @@ DP runs in the hand-written kernel, `ops/dp_cuda.py`), "blocked" (as
 solve, `ops/dp_blocked.py`, and its flagged rows in the scan), "devbuild" (graph
 build, DP and backtrack on the device, `devpipe.py`), "hybrid" (the host
 engine and the devbuild pipeline on group-aligned chunks side by side,
-`hybrid.py`) and "host" (the native engine runs everything); "auto" means
-"cuda" (the reference resolves it to hybrid on an accelerator: ROADMAP
-records that as a decision still open). `device` picks where the device
-work runs: a CUDA device launches the kernels, and an explicit "cpu"
-runs their plain PyTorch versions (tests).
+`hybrid.py`) and "host" (the native engine runs everything). "auto"
+runs "hybrid" on a card with the native engine present, as the
+reference does on an accelerator, unless DAGCON_AUTO_HYBRID=0; otherwise
+(no engine, or device "cpu") it runs "cuda" (`pipeline.auto_takes_hybrid`).
+`device` picks where the device work runs: a CUDA device launches the
+kernels, and an explicit "cpu" runs their plain PyTorch versions (tests).
 """
 
 from __future__ import annotations
@@ -74,7 +75,8 @@ class DagconConfig:
     # "cuda" (device DP kernel), "blocked" (the blocked max-plus solve
     # where the int32 bound admits a batch, else the DP kernel),
     # "devbuild" (all on the device), "hybrid" (host engine + devbuild
-    # side by side), "host" (all native) or "auto" (= cuda).
+    # side by side), "host" (all native) or "auto" (hybrid on a card
+    # with the native engine, unless DAGCON_AUTO_HYBRID=0; else cuda).
     backend: str = "auto"
     # Device of the "cuda" and "devbuild" backends: a CUDA device, or
     # "cpu" for the kernels' plain PyTorch versions.

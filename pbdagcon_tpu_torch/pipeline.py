@@ -19,11 +19,15 @@ Backends (`DagconConfig.backend`):
 - "hybrid": the native engine and the devbuild pipeline side by side on
   group-aligned chunks, rate-adaptive (`hybrid.py`).
 - "host": host DP only (the native engine end to end when built).
-- "auto": "cuda".
+- "auto": "hybrid" on a card with the native engine present, unless
+  DAGCON_AUTO_HYBRID=0 (`auto_takes_hybrid`, the reference's rule);
+  otherwise "cuda" (so on `device="cpu"`, in the tests).
 
 With `-a`, `align_backend="device"`, raw 'pre' records and the "cuda"
 or "blocked" backend, the records are re-aligned by kernel X1 first
 (`device_align_stream`), and the rest of the run goes without `-a`.
+On the hybrid scheduler (so "auto" on a card) the host aligner runs,
+as in the reference.
 
 On the native-loader path, a target past the top V bucket takes the
 column-sharded DP over the process's cards (`parallel/colshard.py`, X2
@@ -151,7 +155,30 @@ class PipelineStats:
 
 
 def resolve_backend(cfg: DagconConfig) -> str:
+    """The backend a batch runs on: "auto" reads "cuda" here. Only
+    `run_stream` may take "auto" to the hybrid scheduler
+    (`auto_takes_hybrid`)."""
     return "cuda" if cfg.backend == "auto" else cfg.backend
+
+
+def auto_takes_hybrid(cfg: DagconConfig) -> bool:
+    """Whether `run_stream` runs backend "auto" on the hybrid scheduler:
+    the reference's rule (`pbdagcon_tpu/pipeline.py`, its "auto"
+    branch), on a card with the native engine present, unless
+    DAGCON_AUTO_HYBRID=0 (e.g. while soaking the scheduler on new
+    hardware). The reference holds the additive scheduler never
+    materially slower than the host engine alone; on an H100 the port's
+    reads below it, for the host worker's flush on every chunk (ROADMAP
+    D11). With `device` "cpu" the "device" would be the cores the host
+    engine runs on, so "auto" stays "cuda" there. An explicit backend is
+    never re-resolved. A requested card that is absent raises
+    (`resolve_device`): never a run on the CPU that was not asked for."""
+    return (
+        resolve_device(cfg.device).type == "cuda"
+        and cfg.use_native
+        and native.available()
+        and os.environ.get("DAGCON_AUTO_HYBRID", "1") != "0"
+    )
 
 
 def _bucket_of(x: int, ladder: tuple[int, ...]) -> int | None:
@@ -734,6 +761,13 @@ def run_stream(
     """Reference-CLI-equivalent entry: M5/'pre' text stream in, FASTA out."""
     stats = PipelineStats()
     backend = resolve_backend(cfg)
+    if cfg.backend == "auto" and auto_takes_hybrid(cfg):
+        backend = "hybrid"
+        log.warning(
+            "backend=auto resolved to the hybrid scheduler "
+            "(host engine + device pipeline); set "
+            "DAGCON_AUTO_HYBRID=0 or --backend to override"
+        )
     if backend == "hybrid":
         if cfg.use_native and native.available():
             from pbdagcon_tpu_torch.hybrid import run_stream_hybrid
