@@ -91,7 +91,8 @@ Phases, in order; any failure exits non-zero before the last line:
    to device="cpu").
 10. The hybrid scheduler on the bench workload: forced device pulls
    (device chunks, hist, scatter and dp_scan launches > 0), defaults,
-   and no probe deferral; each FASTA byte-equal, the chunk split, b/s
+   and no probe deferral; each FASTA byte-equal, the chunk split, the
+   host worker's engine calls (one call a run of queued chunks), b/s
    and the device worker's first-use warmup printed. Then the default
    backend, "auto", there: the hybrid scheduler (host chunks > 0), and
    with DAGCON_AUTO_HYBRID=0 the batched DP (dp_scan launches, no
@@ -1421,7 +1422,8 @@ def main() -> int:
 
     def chunk_line(st) -> str:
         return (f"host/device chunks {st.hybrid_host_chunks}/"
-                f"{st.hybrid_dev_chunks} (bytes {st.hybrid_host_bytes}/"
+                f"{st.hybrid_dev_chunks} in {st.engine_calls} engine calls "
+                f"(bytes {st.hybrid_host_bytes}/"
                 f"{st.hybrid_dev_bytes}; busy s {st.hybrid_host_busy_s:.4f}/"
                 f"{st.hybrid_dev_busy_s:.4f})")
 

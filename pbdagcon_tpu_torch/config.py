@@ -20,6 +20,7 @@ kernels, and an explicit "cpu" runs their plain PyTorch versions (tests).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 
 def resolve_device(device):
@@ -84,7 +85,7 @@ class DagconConfig:
     # Use the native C++ loader/graph engine when available.
     use_native: bool = True
     # Feed-chunk size for the streaming loader, in MB (DAGCON_CHUNK_MB
-    # env overrides).
+    # env overrides): the most text one native engine call is fed.
     chunk_mb: int = 16
 
     def __post_init__(self) -> None:
@@ -120,3 +121,7 @@ class DagconConfig:
             raise ValueError("min_weight/min_length/trim must be >= 0")
         if self.batch_targets < 1 or self.chunk_mb < 1:
             raise ValueError("batch_targets and chunk_mb must be >= 1")
+
+    def chunk_bytes(self) -> int:
+        """The feed-chunk size in bytes: DAGCON_CHUNK_MB, else chunk_mb."""
+        return int(os.environ.get("DAGCON_CHUNK_MB", str(self.chunk_mb))) << 20

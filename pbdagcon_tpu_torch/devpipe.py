@@ -30,7 +30,6 @@ from __future__ import annotations
 import collections
 import dataclasses
 import logging
-import os
 import queue
 import threading
 import time
@@ -536,7 +535,7 @@ def run_devbuild_native(stream, out, cfg, stats, device, journal=None):
     waiting on the batch's event), "assemble", "write" (emitter).
     Host fallbacks are counted by reason on the emitter thread.
     """
-    chunk_bytes = int(os.environ.get("DAGCON_CHUNK_MB", str(cfg.chunk_mb))) << 20
+    chunk_bytes = cfg.chunk_bytes()
     eng = native.NativeEngine(
         min_weight=cfg.min_weight, min_length=cfg.min_length, trim=cfg.trim,
         threads=cfg.threads, align=cfg.align, scorer=cfg.align_scorer,

@@ -29,6 +29,12 @@ backlog is treated as effectively unbounded. Consequences:
   so a stalled device never blocks the output pipeline;
 - neither case needs configuration: both rates are measured in-run.
 
+The host worker feeds its engine a run of queued chunks in one call (up
+to `cfg.chunk_bytes()`, the size of a "host" backend call), so that the
+engine's threads drain once a call and not once a chunk, and splits the
+FASTA back per chunk (`group_ids`, `split_fasta`); the reference makes
+one call a chunk. The output is the same: the chunks are group-aligned.
+
 The pure parts (`_sid_of_line`, `dev_should_pull`, `iter_group_chunks`,
 `_last_group_cut`, `iter_group_chunks_blocks`) are copies of the
 reference's; `run_stream_hybrid` is its port, with the same environment
@@ -202,6 +208,48 @@ def iter_group_chunks_blocks(
         yield carry if carry.endswith(b"\n") else carry + b"\n"
 
 
+def group_ids(data: bytes, fmt: str) -> list[str]:
+    """The target id of each record group in `data`, in order (a group
+    is a run of records with one id, so an id that recurs after another
+    group's is listed again). Reads each line's id from its first 256
+    bytes where it ends there; blank lines and lines with too few fields
+    are skipped (the engine refuses the latter)."""
+    idx = 5 if fmt == "m5" else 1
+    ids: list[str] = []
+    prev = None
+    p, n = 0, len(data)
+    while p < n:
+        e = data.find(b"\n", p)
+        if e < 0:
+            e = n
+        f = data[p:min(e, p + 256)].split(None, idx + 1)
+        if len(f) <= idx + 1 and e > p + 256:
+            f = data[p:e].split(None, idx + 1)
+        if len(f) > idx and f[idx] != prev:
+            prev = f[idx]
+            ids.append(prev.decode(errors="replace"))
+        p = e + 1
+    return ids
+
+
+def split_fasta(text: str, ids: list[list[str]]) -> list[str]:
+    """Split the FASTA of one engine call over the chunks it was fed:
+    `ids[k]` are chunk k's group ids (`group_ids`), no id in two chunks.
+    A record goes to the chunk that holds its header's target id (the
+    header is `>id/start_end`), so a group that emits nothing moves no
+    split. A header whose id no chunk holds stays with the chunk before
+    it, and the chunk never steps back: the pieces always concatenate
+    to `text`."""
+    owner = {sid: k for k, chunk in enumerate(ids) for sid in chunk}
+    parts: list[list[str]] = [[] for _ in ids]
+    k = 0
+    for line in text.splitlines(keepends=True):
+        if line.startswith(">"):
+            k = max(k, owner.get(line[1:].rstrip("\n").rsplit("/", 1)[0], k))
+        parts[k].append(line)
+    return ["".join(p) for p in parts]
+
+
 def run_stream_hybrid(
     stream: TextIO | Iterable[str],
     out: FastaWriter,
@@ -223,6 +271,9 @@ def run_stream_hybrid(
         chunk_bytes = (
             int(os.environ.get("DAGCON_HYBRID_CHUNK_KB", "3072")) << 10
         )
+    # The most text one host engine call takes: the "host" backend's
+    # call size.
+    call_bytes = cfg.chunk_bytes()
     maxq = 8
     margin = 1.2
     # Profitability threshold for the steal rule: the device worker's
@@ -242,6 +293,7 @@ def run_stream_hybrid(
 
     cv = threading.Condition()
     pending: collections.deque = collections.deque()
+    chunk_ids: dict[int, list[str]] = {}  # queued chunk idx -> group ids
     chunker_done = [False]
     abort = [False]
     written = [0]  # writer's next-expected chunk idx (under cv)
@@ -257,6 +309,7 @@ def run_stream_hybrid(
     dev_inflight: dict[int, bytes] = {}
     completed: set[int] = set()
     host_hedged: set[int] = set()
+    dev_exited = [False]
     # A device slower than beta * host retires — but its one probe may
     # have carried the first-use warmup (kernel builds, CUDA context,
     # pinned pools). Allow a fresh probe after every reprobe_bytes of
@@ -266,6 +319,7 @@ def run_stream_hybrid(
         int(os.environ.get("DAGCON_HYBRID_REPROBE_MB", "128")) << 20
     )
     host_bytes_done = [0]
+    calls = [0]  # host engine calls
     probe_mark = [0]
     # Probe deferral: the device's FIRST pull triggers its warmup (on
     # the reference's TPU, jit compiles; here nvcc builds and CUDA
@@ -301,12 +355,14 @@ def run_stream_hybrid(
                     )
                 )
             for data in it:
+                ids = group_ids(data, cfg.fmt)
                 with cv:
                     while len(pending) >= maxq and not abort[0]:
                         cv.wait(0.2)
                     if abort[0]:
                         return
                     pending.append((idx, data))
+                    chunk_ids[idx] = ids
                     idx += 1
                     cv.notify_all()
         except BaseException as e:  # pragma: no cover - IO errors
@@ -318,7 +374,7 @@ def run_stream_hybrid(
                 chunker_done[0] = True
                 cv.notify_all()
 
-    def _dev_should_pull() -> bool:
+    def _dev_would_pull() -> bool:
         # Called under cv; the rule itself is the pure per-byte
         # formulation in `dev_should_pull` (see its docstring).
         if force_dev:
@@ -342,15 +398,41 @@ def run_stream_hybrid(
                 saturated and el >= probe_defer_s / 4
             ):
                 return False
-        if not dev_should_pull(
+        return dev_should_pull(
             [len(dd) for _, dd in pending],
             h_spb[0], d, chunker_done[0], margin, beta,
-        ):
-            return False
-        probe_mark[0] = host_bytes_done[0]
-        return True
+        )
+
+    def _host_run(item) -> list:
+        # Called under cv with the head chunk taken: the chunks queued
+        # behind it join the host's call, in order, up to call_bytes and
+        # inside the reorder window; a chunk that repeats a group id of
+        # the run (so that the split is exact), or that an idle device
+        # would pull now, starts the next call. Never waits for more.
+        run = [(item[0], item[1], chunk_ids.pop(item[0]))]
+        seen = set(run[0][2])
+        size = len(item[1])
+        while pending:
+            j, d = pending[0]
+            ids = chunk_ids[j]
+            if (
+                size + len(d) > call_bytes
+                or j - written[0] > reorder_cap
+                or not seen.isdisjoint(ids)
+                or (not dev_inflight and not dev_exited[0]
+                    and _dev_would_pull())
+            ):
+                break
+            pending.popleft()
+            del chunk_ids[j]
+            run.append((j, d, ids))
+            seen.update(ids)
+            size += len(d)
+        return run
 
     def get_chunk(is_dev: bool):
+        # The device gets one (idx, data); the host a run of
+        # (idx, data, group ids) for one engine call.
         with cv:
             while True:
                 if abort[0]:
@@ -359,11 +441,14 @@ def run_stream_hybrid(
                     if pending[0][0] - written[0] > reorder_cap:
                         cv.wait(0.2)  # bound the reorder window
                         continue
-                    if not is_dev or _dev_should_pull():
+                    if not is_dev or _dev_would_pull():
                         item = pending.popleft()
-                        if is_dev:
-                            dev_inflight[item[0]] = item[1]
                         cv.notify_all()
+                        if not is_dev:
+                            return _host_run(item)
+                        del chunk_ids[item[0]]
+                        dev_inflight[item[0]] = item[1]
+                        probe_mark[0] = host_bytes_done[0]
                         return item
                     if chunker_done[0]:
                         return None  # backlog too small: retire
@@ -377,7 +462,7 @@ def run_stream_hybrid(
                                 and hidx not in host_hedged
                             ):
                                 host_hedged.add(hidx)
-                                return (hidx, dev_inflight[hidx])
+                                return [(hidx, dev_inflight[hidx], None)]
                         if all(
                             i in completed for i in dev_inflight
                         ):
@@ -398,22 +483,31 @@ def run_stream_hybrid(
             )
             prev_done = 0
             while True:
-                item = get_chunk(False)
-                if item is None:
+                run = get_chunk(False)
+                if run is None:
                     break
-                idx, data = item
+                data = b"".join(d for _, d, _ in run)
                 t0 = time.monotonic()
                 text = eng.consensus_text(data, fmt=cfg.fmt, flush=True)
                 dt_s = time.monotonic() - t0
+                calls[0] += 1
                 _ema(h_spb, dt_s / max(1, len(data)))
                 td = eng.targets_done
+                if len(run) == 1:
+                    texts, counts = [text], [td - prev_done]
+                else:
+                    texts = split_fasta(text, [ids for _, _, ids in run])
+                    counts = [len(ids) for _, _, ids in run]
+                    counts[-1] += td - prev_done - sum(counts)
                 with cv:
-                    completed.add(idx)
+                    completed.update(idx for idx, _, _ in run)
                     host_bytes_done[0] += len(data)
                     cv.notify_all()
-                resq.put(
-                    (idx, text, td - prev_done, None, False, dt_s, len(data))
-                )
+                # Each chunk under its own index, with the call's seconds
+                # shared out by bytes.
+                for (idx, d, _), t, n in zip(run, texts, counts):
+                    resq.put((idx, t, n, None, False,
+                              dt_s * len(d) / max(1, len(data)), len(d)))
                 prev_done = td
         except BaseException as e:
             errors.append(e)
@@ -426,6 +520,7 @@ def run_stream_hybrid(
                     _, drec, dgrp = eng.status()
                     st = PipelineStats()
                     st.dropped_records, st.dropped_groups = drec, dgrp
+                    st.engine_calls = calls[0]
                     resq.put((-1, "", 0, st, False, 0.0, 0))
                 except Exception:  # pragma: no cover
                     pass
@@ -466,6 +561,8 @@ def run_stream_hybrid(
                 abort[0] = True
                 cv.notify_all()
         finally:
+            with cv:
+                dev_exited[0] = True
             resq.put(_WORKER_DONE)
 
     ct = threading.Thread(target=chunker, daemon=True)
@@ -500,6 +597,7 @@ def run_stream_hybrid(
                 stats.host_fallbacks += st.host_fallbacks
                 stats.dropped_records += st.dropped_records
                 stats.dropped_groups += st.dropped_groups
+                stats.engine_calls += st.engine_calls
             if idx < 0:
                 continue  # stats-only record (host engine close)
             stats.targets += n
@@ -559,8 +657,9 @@ def run_stream_hybrid(
     stats.hybrid_host_chunks = host_chunks
     stats.hybrid_dev_chunks = dev_chunks
     log.info(
-        "hybrid: host_chunks=%d dev_chunks=%d (host=%s dev=%s)",
-        host_chunks, dev_chunks,
+        "hybrid: host_chunks=%d in %d engine calls, dev_chunks=%d "
+        "(host=%s dev=%s)",
+        host_chunks, calls[0], dev_chunks,
         f"{1e-6 / h_spb[0]:.1f}MB/s" if h_spb[0] else "unmeasured",
         f"{1e-6 / d_spb[0]:.1f}MB/s" if d_spb[0] else "unmeasured",
     )

@@ -136,6 +136,10 @@ class PipelineStats:
     # first-use warmup included (set when the device took a chunk).
     hybrid_dev_first_s: float = 0.0
     hybrid_dev_first_bytes: int = 0
+    # Calls that fed the native engine a slice of the stream for
+    # consensus or linearize: the "host" loop, the "cuda" producer and
+    # the hybrid's host worker (devbuild's encode slices not counted).
+    engine_calls: int = 0
     # Device batches by shape rung, keyed by the rung's (name, size)
     # pairs: V, W, K on the native-loader path; R, C, L, W, V on devbuild.
     rungs: dict[tuple, int] = dataclasses.field(default_factory=dict)
@@ -489,7 +493,8 @@ def _run_stream_native(
     with Python only feeding text chunks.
 
     Otherwise three threads form the pipeline: the producer linearizes
-    text slices in the engine (ctypes releases the GIL); the main thread
+    text slices of `cfg.chunk_bytes()` (the "host" loop's call size) in
+    the engine (ctypes releases the GIL); the main thread
     (submitter) packs each batch of `cfg.batch_targets` targets into a
     pinned arena and dispatches upload + kernel + score copy on the
     current CUDA stream; the emitter waits on each batch's CUDA event,
@@ -499,12 +504,12 @@ def _run_stream_native(
     """
     eng = _native_engine(cfg)
     assert eng is not None
-    chunk_bytes = int(os.environ.get("DAGCON_CHUNK_MB", str(cfg.chunk_mb))) << 20
+    chunk_bytes = cfg.chunk_bytes()
 
-    def chunks(size: int) -> Iterator[tuple[bytes, bool]]:
+    def chunks() -> Iterator[tuple[bytes, bool]]:
         if hasattr(stream, "read"):
             while True:
-                buf = stream.read(size)  # type: ignore[union-attr]
+                buf = stream.read(chunk_bytes)  # type: ignore[union-attr]
                 if not buf:
                     break
                 yield buf.encode() if isinstance(buf, str) else buf, False
@@ -515,7 +520,7 @@ def _run_stream_native(
                 b = line.encode() if isinstance(line, str) else line
                 acc.append(b)
                 n += len(b)
-                if n >= size:
+                if n >= chunk_bytes:
                     yield b"".join(acc), False
                     acc, n = [], 0
             if acc:
@@ -525,8 +530,9 @@ def _run_stream_native(
     producer_thread = None  # (thread, stop, cond) once the producer runs
     try:
         if backend == "host":
-            for data, flush in chunks(chunk_bytes):
+            for data, flush in chunks():
                 text = eng.consensus_text(data, fmt=cfg.fmt, flush=flush)
+                stats.engine_calls += 1
                 if text:
                     out.stream.write(text)
                     _count_output(text, stats)
@@ -648,11 +654,10 @@ def _run_stream_native(
         retained = [0]
         dispatch_n = cfg.batch_targets
         limit = 3 * dispatch_n  # retained-target cap: backpressure
-        slice_bytes = min(chunk_bytes, 4 << 20)
 
         def producer() -> None:
             try:
-                for data, flush in chunks(slice_bytes):
+                for data, flush in chunks():
                     with cond:
                         while retained[0] >= limit and not stop.is_set():
                             cond.wait(1.0)
@@ -661,6 +666,7 @@ def _run_stream_native(
                     t0 = time.perf_counter()
                     appended = eng.linearize_text(data, fmt=cfg.fmt, flush=flush)
                     stats.add_time("linearize", t0)
+                    stats.engine_calls += 1
                     if appended:
                         with cond:
                             retained[0] += appended
@@ -779,9 +785,9 @@ def run_stream(
             )
             log.info(
                 "hybrid: targets=%d fragments=%d bases=%d batches=%d "
-                "host_fallbacks=%d",
+                "host_fallbacks=%d engine_calls=%d",
                 stats.targets, stats.fragments, stats.consensus_bases,
-                stats.batches, stats.host_fallbacks,
+                stats.batches, stats.host_fallbacks, stats.engine_calls,
             )
             return stats
         # No native engine: the "cuda" backend on cfg.device.
@@ -829,12 +835,13 @@ def run_stream(
                 journal.mark(sid)
     log.info(
         "targets=%d fragments=%d bases=%d batches=%d host_fallbacks=%d "
-        "pad_waste=%.1f%%",
+        "pad_waste=%.1f%% engine_calls=%d",
         stats.targets,
         stats.fragments,
         stats.consensus_bases,
         stats.batches,
         stats.host_fallbacks,
         100.0 * stats.pad_nodes / max(1, stats.pad_nodes + stats.real_nodes),
+        stats.engine_calls,
     )
     return stats
