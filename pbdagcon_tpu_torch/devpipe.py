@@ -48,7 +48,7 @@ from pbdagcon_tpu_torch.ops.devbuild_torch import (
     device_build,
     device_build_packed,
 )
-from pbdagcon_tpu_torch.ops.devemit import assemble_fragments, backtrack_emit
+from pbdagcon_tpu_torch.ops.devemit import assemble_batch, backtrack_emit
 from pbdagcon_tpu_torch.ops.dp import dp_scores
 
 log = logging.getLogger("pbdagcon_tpu_torch")
@@ -347,16 +347,35 @@ def run_batch(
     return res
 
 
-def _fallback_reason(o: dict, j: int) -> str | None:
-    """Why batch row j takes the host path (None: the device emitted it)."""
-    f = int(o["flags"][j])
-    if f:
-        return FLAG_REASONS[(f & -f).bit_length() - 1]
-    if o["ambiguous"][j]:
-        return "ambiguous"
-    if o["overflow"][j]:
-        return "overflow"
-    return None
+_REASONS = FLAG_REASONS + ("ambiguous", "overflow")
+
+
+def fallback_reasons(o: dict, n: int) -> list[str | None]:
+    """Why each of batch rows 0..n-1 takes the host path (None: the
+    device emitted it): the lowest flag bit, else ambiguous, else
+    overflow."""
+    code = np.full(n, -1, dtype=np.int64)
+    code[o["overflow"][:n]] = len(FLAG_REASONS) + 1
+    code[o["ambiguous"][:n]] = len(FLAG_REASONS)
+    flags = o["flags"][:n]
+    for k in reversed(range(len(FLAG_REASONS))):
+        code[(flags >> k) & 1 == 1] = k
+    return [_REASONS[c] if c >= 0 else None for c in code.tolist()]
+
+
+def _assemble(
+    o: dict, n: int, min_length: int
+) -> tuple[list[str | None], dict[int, list[CnsResult]]]:
+    """Rows 0..n-1 of a fetched batch: each row's fallback reason, and
+    the fragments of the rows the device emitted (`assemble_batch`)."""
+    whys = fallback_reasons(o, n)
+    rows = [j for j, why in enumerate(whys) if why is None]
+    bk = o["bk"][rows]
+    res = assemble_batch(
+        bk & 0x7F, bk >= 128, o["bbpos"][rows], o["path_len"][rows],
+        min_length,
+    )
+    return whys, dict(zip(rows, res))
 
 
 class _Fetch:
@@ -478,17 +497,12 @@ def run_devbuild_pipeline(
                     device,
                 ).result()
                 stats.batches += 1
-                bases = o["bk"] & 0x7F
-                kept = o["bk"] >= 128
-                for j, (pi, e) in enumerate(part):
-                    why = _fallback_reason(o, j)
-                    if why is not None:
-                        reasons[pi] = why
+                whys, got = _assemble(o, len(part), cfg.min_length)
+                for j, (pi, _e) in enumerate(part):
+                    if whys[j] is not None:
+                        reasons[pi] = whys[j]
                     else:
-                        results[pi] = assemble_fragments(
-                            bases[j], kept[j], o["bbpos"][j],
-                            int(o["path_len"][j]), cfg.min_length,
-                        )
+                        results[pi] = got[j]
         for pi, (group, _e) in enumerate(pending):
             res = results.get(pi)
             if res is None:
@@ -638,19 +652,13 @@ def run_devbuild_native(stream, out, cfg, stats, device, journal=None):
                 bkey, caps, int(o["wneed"].max()), int(o["nlong"].max()),
                 int(o["nv"].max()),
             )
-            bases_all = o["bk"] & 0x7F
-            kept_all = o["bk"] >= 128
+            whys, got = _assemble(o, len(part), cfg.min_length)
             for j, i in enumerate(part):
-                why = _fallback_reason(o, j)
-                if why is not None:
-                    stats.fallback(why)
+                if whys[j] is not None:
+                    stats.fallback(whys[j])
                     host_idx.append(i)
                 else:
-                    res = assemble_fragments(
-                        bases_all[j], kept_all[j], o["bbpos"][j],
-                        int(o["path_len"][j]), cfg.min_length,
-                    )
-                    texts[i] = format_fasta(win["sids"][i], res)
+                    texts[i] = format_fasta(win["sids"][i], got[j])
             stats.add_time("assemble", t0)
         t0 = time.perf_counter()
         with idx_lock:

@@ -9,7 +9,9 @@ tie involving a KEY_UNCERTAIN edge flags the target for the host), and
 walks the path by pointer doubling. It emits per-step (base, kept,
 backbone position) in fixed-shape arrays; the host assembles the FASTA
 fragments (`assemble_fragments`, the semantics of
-`ops/linearize.py::consensus_from_path`, SPEC §2.7).
+`ops/linearize.py::consensus_from_path`, SPEC §2.7; `assemble_batch`,
+the same for a whole batch with array operations, is what the pipeline
+calls).
 
 Against the JAX form: the band's shifted score/cov/unsup windows are
 `Tensor.unfold` views (no convolution, so no TF32 can touch a score;
@@ -254,3 +256,47 @@ def assemble_fragments(
             close()
     close()
     return results
+
+
+def assemble_batch(
+    bases: np.ndarray,
+    kept: np.ndarray,
+    bbpos: np.ndarray,
+    path_len: np.ndarray,
+    min_length: int,
+) -> list[list[CnsResult]]:
+    """`assemble_fragments` of every row of a batch ([N, P] arrays,
+    path_len [N]) at once: the backbone position's forward fill, the
+    runs of kept steps and their ranges are array operations over the
+    whole batch; Python touches each kept fragment once (its slice of
+    the bases)."""
+    path_len = np.asarray(path_len)
+    N, P = kept.shape
+    P = min(P, int(path_len.max(initial=0)))  # no step past a path counts
+    bases, kept, bbpos = bases[:, :P], kept[:, :P], bbpos[:, :P]
+    steps = np.arange(P, dtype=np.int32)
+    live = kept & (steps[None, :] < path_len[:, None])
+    on_bb = bbpos != 0
+    # The last backbone step at or before each step (-1: none yet).
+    last_bb = np.maximum.accumulate(np.where(on_bb, steps, -1), axis=1)
+    edge = np.diff(live.view(np.int8), axis=1, prepend=0, append=0)
+    rows, start = np.nonzero(edge == 1)
+    _, end = np.nonzero(edge == -1)  # exclusive; row-major, so paired
+    ok = end - start >= max(min_length, 1)
+    rows, start, end = rows[ok], start[ok], end[ok]
+
+    def bb_pos(i):  # bb_pos at step i of each fragment's row
+        at = last_bb[rows, i]
+        return np.where(at >= 0, bbpos[rows, np.maximum(at, 0)], 0)
+
+    lo = bb_pos(start) - on_bb[rows, start]
+    hi = bb_pos(end - 1)
+    flat = np.ascontiguousarray(bases, dtype=np.uint8).tobytes()
+    base0 = rows * P
+    out: list[list[CnsResult]] = [[] for _ in range(N)]
+    for r, a, b, s, e in zip(
+        rows.tolist(), (base0 + start).tolist(), (base0 + end).tolist(),
+        lo.tolist(), hi.tolist(),
+    ):
+        out[r].append(CnsResult((s, e), flat[a:b].decode()))
+    return out

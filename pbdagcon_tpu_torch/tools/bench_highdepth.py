@@ -208,8 +208,7 @@ def exec_only(cov: int = 200, n_targets: int = 128, length: int = 1000,
         dt = time.perf_counter() - t
     per_step = {k: v / steps for k, v in since(before).items()}
     host = {k: v.cpu().numpy() for k, v in out.items()}
-    flagged = sum(devpipe._fallback_reason(host, j) is not None
-                  for j in range(n))
+    flagged = sum(why is not None for why in devpipe.fallback_reasons(host, n))
     rate = (n - flagged) * length * steps / dt
     log(f"highdepth exec-only {cov}x: {rate:.1f} b/s over the {n - flagged} "
         f"unflagged of {n} targets ({flagged} flagged to the host; "

@@ -134,6 +134,28 @@ def test_assemble_fragments_equals_jax(ref):
     assert emitted >= 5
 
 
+@pytest.mark.parametrize("min_length", [1, 5, 40])
+def test_assemble_batch_equals_jax(ref, min_length):
+    """The batch assembly over the emitted rows equals the JAX package's
+    per-target assembly, row by row."""
+    e = ref["emits"][P_FULL]
+    rows = [b for b in range(CAPS.B)
+            if not (ref["build"]["flags"][b] or e["ambiguous"][b])]
+    got = devemit.assemble_batch(
+        e["bases"][rows], e["kept"][rows], e["bbpos"][rows],
+        e["path_len"][rows], min_length,
+    )
+    for b, res in zip(rows, got):
+        want = jde.assemble_fragments(
+            e["bases"][b], e["kept"][b], e["bbpos"][b],
+            int(e["path_len"][b]), min_length,
+        )
+        assert [(r.range, r.seq) for r in res] == [
+            (r.range, r.seq) for r in want
+        ]
+    assert len(rows) >= 5 and sum(map(len, got)) > 0
+
+
 def test_pick_equals_jax():
     """Ties: equal totals pick the minimum masked key; a tie with an
     uncertain key flags."""
